@@ -12,11 +12,15 @@ modules:
   HWIO -> OIHW in channels_last storage (cuDNN's layout) and the compute
   dtype; batch norms and fc stay f32;
 - :func:`clstm_from_params` -> ``models.clstm.ConvLSTM``: HWIO kernels (the
-  layout the fused cube conv reads) and biases in the compute dtype.
+  layout the fused cube conv reads) and biases in the compute dtype, or as
+  f32 trainable parameters; :func:`clstm_to_params` turns one back into a
+  numpy tree.
 
-It also reads the JAX package's flat ``.npz`` checkpoints (own copies of
-``flatten_params`` / ``unflatten_params`` / ``load_npz``,
-``cp360_tpu/compat/torch_weights.py:121-165``) and makes seeded random
+It also reads and writes the JAX package's flat ``.npz`` checkpoints (own
+copies of ``flatten_params`` / ``unflatten_params`` / ``save_npz`` /
+``load_npz``, ``cp360_tpu/compat/torch_weights.py:121-165``), converts the
+reference's ConvLSTM state-dict names (:func:`convert_clstm_state_dict`,
+``torch_weights.py:84-114``) and makes seeded random
 parameters for smoke runs: numpy ``RandomState``, He-normal fan-out as
 ``cp360_tpu/models/layers.py:112`` (reference model/resnet_cubic.py:137-143,
 model/clstm.py:84-90).  The numbers differ from ``jax.random``'s for the
@@ -26,6 +30,8 @@ same seed; the tests hand one numpy tree to both packages.
 from __future__ import annotations
 
 import math
+import os
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -72,9 +78,48 @@ def unflatten_params(flat: Mapping[str, np.ndarray]):
     return listify(tree)
 
 
+def save_npz(path: str, params) -> None:
+    """Write a param tree as the flat ``.npz`` :func:`load_npz` reads, in
+    one atomic step: a temp file in the same directory, then a rename, so a
+    killed writer never leaves a torn checkpoint under the final name.
+    Stored uncompressed: trained f32 weights do not compress, and zlib
+    would take a minute over the 1.4 GB of a full-width ConvLSTM."""
+    if not path.endswith(".npz"):
+        path += ".npz"  # np.savez would append it after the rename
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flatten_params(params))
+    os.replace(tmp, path)
+
+
 def load_npz(path: str):
     with np.load(path) as f:
         return unflatten_params(dict(f))
+
+
+_CLSTM_NAME_MAP = {"Conv1": "conv1", "Conv2": "conv2", "Gates": "gates"}
+
+
+def convert_clstm_state_dict(sd: Mapping[str, np.ndarray]) -> dict:
+    """Reference ConvLSTMCell state dict (``Conv1``/``Conv2``/``Gates``
+    ``.weight``/``.bias``, model/clstm.py:28-34; OIHW kernels) -> the
+    ConvLSTM param tree (HWIO).  Other key names fall back to positional
+    order, as the reference's sequential loader does (model/clstm.py:92-101):
+    conv1.w, conv1.b, conv2.w, conv2.b, gates.w, gates.b."""
+    named = {}
+    for k, v in sd.items():
+        m = re.match(r"^(Conv1|Conv2|Gates)\.(weight|bias)$", k)
+        if m:
+            named[(_CLSTM_NAME_MAP[m.group(1)], m.group(2))] = np.asarray(v)
+    if len(named) != 6:
+        vals = list(sd.values())
+        if len(vals) < 6:
+            raise ValueError(f"CLSTM checkpoint has {len(vals)} tensors, expected 6")
+        order = [(n, p) for n in ("conv1", "conv2", "gates") for p in ("weight", "bias")]
+        named = {o: np.asarray(v) for o, v in zip(order, vals)}
+    return {name: {"w": np.ascontiguousarray(named[(name, "weight")].transpose(2, 3, 1, 0)),
+                   "b": named[(name, "bias")]}
+            for name in ("conv1", "conv2", "gates")}
 
 
 # ---------------------------------------------------------------------------
@@ -181,11 +226,27 @@ def resnet_from_params(params: dict, arch: str = "resnet50", use_cube_pad: bool 
 
 def clstm_from_params(params: dict, compute_dtype: torch.dtype = torch.bfloat16,
                       use_cube_pad: bool = True, conv_impl: str = "xla",
-                      device="cpu") -> ConvLSTM:
-    """A JAX ConvLSTM param tree -> the port's ``ConvLSTM`` on ``device``."""
+                      device="cpu", trainable: bool = False) -> ConvLSTM:
+    """A JAX ConvLSTM param tree -> the port's ``ConvLSTM`` on ``device``:
+    weights in the compute dtype for serving, or f32 trainable parameters."""
+    dtype = torch.float32 if trainable else compute_dtype
+
     def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device, compute_dtype)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
     convs = {name: {"w": tensor(params[name]["w"]), "b": tensor(params[name]["b"])}
              for name in ("conv1", "conv2", "gates")}
-    return ConvLSTM(convs, compute_dtype, use_cube_pad, conv_impl).eval()
+    cell = ConvLSTM(convs, compute_dtype, use_cube_pad, conv_impl, trainable=trainable)
+    return cell.train() if trainable else cell.eval()
+
+
+def clstm_to_params(cell: ConvLSTM) -> dict:
+    """The port's ``ConvLSTM`` -> a JAX ConvLSTM param tree of f32 numpy
+    arrays (HWIO kernels), as ``init_clstm_params`` makes and
+    :func:`save_npz` writes."""
+    def array(t):
+        return t.detach().float().cpu().numpy()
+
+    return {name: {"w": array(getattr(cell, f"{name}_w")),
+                   "b": array(getattr(cell, f"{name}_b"))}
+            for name in ("conv1", "conv2", "gates")}

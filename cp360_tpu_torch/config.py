@@ -8,7 +8,12 @@ extraction, mesh and link settings) are kept so a shared file still
 validates; the port's serving path reads ``cube_dim``, ``equi_h``/``equi_w``,
 ``input_size``/``hidden_size``, ``seq_len``, ``cube_pad``, ``compute_dtype``,
 ``host_cube_remap``, ``clstm_conv_impl``, ``upload_format``, ``mesh_data``
-and the ``serve_*`` keys.
+and the ``serve_*`` keys.  Its trainer (``train/loop.py``) reads the
+training keys too: ``checkpoint_path``, ``epochs``, ``save_freq``,
+``summary_freq``, ``lr`` and the ``lr_*`` schedule keys, ``grad_clip_norm``,
+``batch_size``, ``flow_h``, the loss weights ``l_s``/``l_t``/
+``l_m``, ``mm_th``, ``train_remat`` and ``keep_checkpoints``; it refuses the
+options it does not run yet (``train/loop.py::check_config``).
 
 Note on ``equi_h``/``equi_w``: the reference passes (equi_h, equi_w) as a
 PIL (width, height) pair, so with the shipped values the actual frame is

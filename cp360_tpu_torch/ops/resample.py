@@ -13,6 +13,10 @@ geometry/equi_cube.py) and blends 4 bilinear taps:
   in-face coordinates of the face the face map picks.  For faces up to
   20x20 (the CAM cubes) it is one product with a dense interpolation
   matrix; larger faces use the 4-tap gather.
+- ``grid_sample``, ``warp_upsampled`` and ``resize_bilinear`` reproduce
+  torch-0.3 ``grid_sample`` / ``upsample(mode='bilinear')`` (both
+  align_corners=True, zero padding), as the training losses use them
+  (temporal_model/train_temporal.py:132-143).
 """
 
 from __future__ import annotations
@@ -185,3 +189,117 @@ def cube_to_equi(faces: torch.Tensor) -> torch.Tensor:
     xs, ys, base = _cube2equi_gather_maps(w, faces.device)
     out = _bilinear_gather(flat, xs, ys, h, w, base=base)  # [N, 2w, 4w, C]
     return out[0] if squeeze else out
+
+
+def grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """torch-0.3 ``nn.functional.grid_sample`` semantics, NHWC
+    (``cp360_tpu/ops/resample.py:203-248``).
+
+    Args:
+      x: [N, H, W, C].
+      grid: [N, Hg, Wg, 2] with (x, y) in [-1, 1], align_corners=True
+        normalization; out-of-range corners contribute zeros.
+
+    Returns [N, Hg, Wg, C].  Integer inputs are sampled in f32 and rounded
+    back to their dtype.
+    """
+    src_dtype = x.dtype
+    integer_src = not src_dtype.is_floating_point
+    if integer_src:
+        x = x.float()
+    n, h, w, c = x.shape
+    gx = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
+    gy = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
+    x0 = torch.floor(gx)
+    y0 = torch.floor(gy)
+    fx = (gx - x0).to(x.dtype)
+    fy = (gy - y0).to(x.dtype)
+    flat = x.reshape(n, h * w, c)
+
+    def corner(yi, xi, wgt):
+        inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        xc = torch.clamp(xi, 0, w - 1).long()
+        yc = torch.clamp(yi, 0, h - 1).long()
+        idx = (yc * w + xc).reshape(n, -1, 1).expand(-1, -1, c)
+        vals = torch.gather(flat, 1, idx).reshape(n, *yi.shape[1:], c)
+        return vals * (wgt * inb.to(x.dtype))[..., None]
+
+    out = (corner(y0, x0, (1 - fx) * (1 - fy))
+           + corner(y0, x0 + 1, fx * (1 - fy))
+           + corner(y0 + 1, x0, (1 - fx) * fy)
+           + corner(y0 + 1, x0 + 1, fx * fy))
+    if integer_src:
+        out = torch.round(out).to(src_dtype)
+    return out
+
+
+def warp_upsampled(p_lo: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``grid_sample(resize_bilinear(p_lo[..., None], H, W), grid)[..., 0]``
+    without the upsample or the gather (``cp360_tpu/ops/resample.py:251-305``).
+
+    The upsampled image is ``Ry @ p @ Rx^T`` with analytic hat rows
+    ``R[r, a] = max(0, 1 - |r*s - a|)``, s = (n_coarse-1)/(n_fine-1), so a
+    sample at (gy, gx) is the bilinear form ``d[pix] @ p @ e[pix]^T`` with
+    d, e the fine-grid interpolation of two hat rows each; out-of-range fine
+    rows/columns are masked as in :func:`grid_sample`.
+
+    Args:
+      p_lo: [N, ph, pw] low-res maps.
+      grid: [N, H, W, 2] in [-1, 1], align-corners.
+
+    Returns [N, H, W].
+    """
+    n, ph, pw = p_lo.shape
+    out_h, out_w = grid.shape[1], grid.shape[2]
+    gx = (grid[..., 0] + 1.0) * 0.5 * (out_w - 1)  # [N, H, W]
+    gy = (grid[..., 1] + 1.0) * 0.5 * (out_h - 1)
+
+    def axis_weights(g, n_fine, n_coarse):
+        scale = (n_coarse - 1.0) / (n_fine - 1.0)
+        ar = torch.arange(n_coarse, dtype=g.dtype, device=g.device)[None, :, None, None]
+        g0 = torch.floor(g)
+        f = g - g0
+
+        def row_of_resize_matrix(yi):
+            inb = (yi >= 0) & (yi <= n_fine - 1)
+            wgt = torch.clamp(1.0 - torch.abs(yi[:, None] * scale - ar), min=0.0)
+            return wgt * inb[:, None].to(g.dtype)
+
+        return ((1.0 - f)[:, None] * row_of_resize_matrix(g0)
+                + f[:, None] * row_of_resize_matrix(g0 + 1.0))
+
+    d = axis_weights(gy, out_h, ph)  # [N, ph, H, W]
+    e = axis_weights(gx, out_w, pw)  # [N, pw, H, W]
+    b = torch.einsum("nbhw,nab->nahw", e, p_lo.float())
+    return torch.sum(d * b, dim=1)
+
+
+@lru_cache(maxsize=32)
+def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """1-D align-corners bilinear interpolation matrix [n_out, n_in]."""
+    pos = np.linspace(0.0, n_in - 1.0, n_out)
+    i0 = np.floor(pos).astype(np.int64)
+    f = pos - i0
+    i1 = np.clip(i0 + 1, 0, n_in - 1)
+    m = np.zeros((n_out, n_in), np.float32)
+    rows = np.arange(n_out)
+    np.add.at(m, (rows, i0), 1.0 - f)
+    np.add.at(m, (rows, i1), f)
+    return m
+
+
+@lru_cache(maxsize=32)
+def _resize_matrix_on(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_resize_matrix(n_in, n_out)).to(device)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """torch-0.3 ``upsample(mode='bilinear')`` (align_corners=True), NHWC:
+    [N, H, W, C] -> [N, out_h, out_w, C] in x's dtype, as two separable
+    interpolation products in f32 (``cp360_tpu/ops/resample.py:322-340``)."""
+    _, h, w, _ = x.shape
+    ry = _resize_matrix_on(h, out_h, x.device)  # [out_h, h]
+    rx = _resize_matrix_on(w, out_w, x.device)  # [out_w, w]
+    out = torch.einsum("Oh,nhwc->nOwc", ry, x.float())
+    out = torch.einsum("Pw,nhwc->nhPc", rx, out)
+    return out.to(x.dtype)
