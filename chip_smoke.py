@@ -24,13 +24,20 @@ Phases, in order; any failure exits non-zero before the result lines:
      f32 on the same inputs, at the forward's tolerances.
    - K2 ``equi_to_cube``: u8 [8,960,1920,3] -> [8,6,224,224,3] f32,
      max|err| <= 1e-6.
+   - K3 ``cube_pool3x3s2`` (the stem's cube-padded 3x3/s2 max pool): bf16
+     [8,6,112,112,64] (a serving bucket), [16,6,112,112,64] (an extraction
+     batch), f32 [2,6,112,112,64], and bf16 [8,...] with +-inf and NaN
+     planted on face edges and corners: bit for bit (equal bits wherever
+     the plain version is not NaN, NaN where it is).  Its plain version,
+     cube pad + ``F.max_pool2d``, is also the only PyTorch yardstick, so
+     library ms is the plain version's time.
 3. slice: ``SaliencyModel(device="cuda")`` at full width (ResNet-50,
    224 faces of 960x1920 frames, 1000-class CAM, ConvLSTM 1000/1000,
    seq_len 5, bf16, all-device stage 1, seeded random weights) serves
    ``predict`` calls and two temporal sessions from several threads.  It
    checks shapes and finite values, that every ConvLSTM conv went through
-   K1 and every stage-1 equi->cube through K2 (launch counts against the
-   batchers' batch counts), that each session's prediction equals offline
+   K1 and every stage-1 equi->cube and stem pool through K2 and K3 (launch
+   counts against the batchers' batch counts), that each session's prediction equals offline
    ``window_infer`` on the session's cubes, and that one frame and one
    window recomputed in f32 on the card agree with the plain f32 path on
    the CPU.
@@ -48,6 +55,30 @@ Phases, in order; any failure exits non-zero before the result lines:
    tensor's largest, updated weights within 0.2 lr where the gradient's
    sign is well defined (|g| > 1e-4 max|g|) and within 2 lr everywhere.
 
+5. video: the offline pipeline at full width (ResNet-50, 1000 classes,
+   960x1920 frames, 224 faces, ConvLSTM 1000/1000, seq_len 5, bf16,
+   ``host_cube_remap: false``, seeded weights).
+   - ``extract_frames`` on two test_25 videos of 24 seeded frames with
+     ``-of -oi`` (batches of 16: one full, one padded tail each): names
+     from 000002, [6,1000,7,7] f16 artifacts, one K2 and one K3 launch per
+     batch, and the first batch equal to ``stage1_batch`` on its frames.
+   - ``cli.extract_features`` on ``tests/golden/e2e_full``'s mp4s (cv2) in
+     f32: CAMs within 0.02 relative of the golden's, as
+     ``tests/test_e2e_golden_full.py``, once all on the device (K2 + K3)
+     and once with the host cv2 remap and the int8 codec (K3 only).
+   - ``cli.test_temporal`` in f32 on the scaled golden's feats
+     (``tests/golden/e2e``): predictions to atol 2e-5 / rtol 1e-4 and the
+     aggregate to 1e-4, as ``tests/test_e2e_golden.py``.
+   - the same CLI at full width on ``e2e_full``'s f16-stored feats, in f32:
+     within the drift that f16 storage alone causes in the JAX package
+     (``tools/e2e_full_f16_drift.py``) plus a margin; then in bf16, printed
+     against the card's f32 run.
+   - the same CLI in bf16 on the extracted artifacts with seeded synthetic
+     GT: finite metrics, 15 K1 launches per window batch.
+   - then, outside the counted runs: frames/s of extraction with artifacts
+     only, windows/s of ``infer_video`` at 64 windows per batch (disk reads
+     included), and a profile of a 16-frame stage-1 step with K3's row.
+
 The last lines are ``{"kernels": [...]}``, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -59,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -250,6 +282,55 @@ def check_equi_to_cube(n: int, gen) -> dict:
     return res
 
 
+def pool_input(n: int, dtype: torch.dtype, gen, specials: bool) -> torch.Tensor:
+    """[n,6,112,112,64] stem activations, distinct per face; with
+    ``specials``, +-inf and NaN on face edges and corners (they feed the
+    neighbours' halos) and in the interior."""
+    x = torch.randn(n, 6, 112, 112, 64, generator=gen, device="cuda")
+    x += torch.arange(6, device="cuda", dtype=torch.float32).reshape(1, 6, 1, 1, 1)
+    if specials:
+        nan, inf = float("nan"), float("inf")
+        x[0, 0, 0, 0, 0] = nan
+        x[0, 5, 0, 111, 1] = inf
+        x[n - 1, 3, 111, 0, 2] = -inf
+        x[n - 1, 2, 0, 57, 3] = nan
+        x[0, 1, 111, 31, 63] = nan
+        x[n - 1, 4, :, 0, 40] = -inf
+        x[0, 4, 50, 111, 7] = inf
+        x[0, 2, 60, 60, 8] = nan
+    return x.to(dtype)
+
+
+def check_cube_pool(n: int, dtype: torch.dtype, gen, specials: bool = False) -> dict:
+    from cp360_tpu_torch.ops import cube_pool
+
+    x = pool_input(n, dtype, gen, specials)
+    got = cube_pool.cube_pad_max_pool_3x3s2(x)
+    ref = cube_pool.cube_pad_max_pool_3x3s2_plain(x)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    same_nan = torch.equal(torch.isnan(got), nan)
+    same_bits = torch.equal(got.view(ints)[~nan], ref.view(ints)[~nan])
+    finite = ~nan & torch.isfinite(ref)
+    err = (got.float()[finite] - ref.float()[finite]).abs().max().item()
+    ok = bool(same_nan and same_bits) and tuple(got.shape) == (n, 6, 56, 56, 64)
+
+    ms = cuda_ms(lambda: cube_pool.cube_pad_max_pool_3x3s2(x), iters=50)
+    plain_ms = cuda_ms(lambda: cube_pool.cube_pad_max_pool_3x3s2_plain(x), iters=20)
+    n_bytes = (x.numel() + got.numel()) * x.element_size()
+    n_ops = 8.0 * got.numel()  # 8 compares per output value
+    bms, by = bound_ms(n_bytes, n_ops, H100_F32_FLOPS)
+    res = {"shape": f"{str(dtype).split('.')[-1]} [{n},6,112,112,64]"
+                    + (" +-inf/NaN" if specials else ""),
+           "max_abs_err": err, "tol": 0.0, "bit_equal": bool(same_bits),
+           "nan_equal": bool(same_nan), "nans": int(nan.sum().item()), "passed": ok,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms, "bound_ms": bms,
+           "bound_by": by, "gbytes_per_s": n_bytes / (ms * 1e-3) / 1e9}
+    print(f"K3 cube_pool3x3s2 {json.dumps(res)}", flush=True)
+    return res
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -262,11 +343,17 @@ def phase_kernels() -> dict:
             check_cube_conv_dx(1, 4000, 4000, torch.bfloat16, gen),
             check_cube_conv_dx(2, 2000, 4000, torch.float32, gen)]
     k2 = check_equi_to_cube(8, gen)
-    bad = [r["shape"] for r in k1 + k1dx + [k2] if not r["passed"]]
+    k3 = [check_cube_pool(8, torch.bfloat16, gen),
+          check_cube_pool(16, torch.bfloat16, gen),
+          check_cube_pool(2, torch.float32, gen),
+          check_cube_pool(8, torch.bfloat16, gen, specials=True)]
+    bad = [r["shape"] for r in k1 + k1dx + [k2] + k3 if not r["passed"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
-    # the JSON line reports the dominant main-path conv (2 of the 3 per step)
-    return {"cube_conv3x3": k1[1], "cube_conv3x3_dx": k1dx[0], "equi_to_cube": k2}
+    # the JSON line reports the dominant main-path conv (2 of the 3 per
+    # step) and the stem pool at an extraction batch of 16
+    return {"cube_conv3x3": k1[1], "cube_conv3x3_dx": k1dx[0], "equi_to_cube": k2,
+            "cube_pool3x3s2": k3[1]}
 
 
 # ---- phase 3: the serving slice ----------------------------------------------
@@ -275,7 +362,7 @@ def phase_kernels() -> dict:
 def phase_slice() -> dict:
     from cp360_tpu_torch.compat import jax_params
     from cp360_tpu_torch.config import Config
-    from cp360_tpu_torch.ops import cube_conv, equi_gather
+    from cp360_tpu_torch.ops import cube_conv, cube_pool, equi_gather
     from cp360_tpu_torch.pipelines.extract import stage1_batch
     from cp360_tpu_torch.pipelines.temporal import window_infer
     from cp360_tpu_torch.serving.server import SaliencyModel
@@ -326,6 +413,7 @@ def phase_slice() -> dict:
     temporal_b0 = model._temporal_batcher.stats["batches"]
     cube_conv.launches = 0
     equi_gather.launches = 0
+    cube_pool.launches = 0
     t0 = time.monotonic()
     with ThreadPoolExecutor(max_workers=6) as pool:
         sess_futs = [pool.submit(run_session, s) for s in sessions]
@@ -335,6 +423,7 @@ def phase_slice() -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     k1_launches, k2_launches = cube_conv.launches, equi_gather.launches
+    k3_launches = cube_pool.launches
     stage1_batches = model._batcher.stats["batches"] - stage1_b0
     temporal_batches = model._temporal_batcher.stats["batches"] - temporal_b0
 
@@ -356,13 +445,14 @@ def phase_slice() -> dict:
     print(f"slice: {len(preds)} predicts + {sum(len(s) for s in sessions)} "
           f"temporal pushes; stage-1 batches {stage1_batches}, window batches "
           f"{temporal_batches}; K1 launches {k1_launches}, K2 launches "
-          f"{k2_launches}", flush=True)
-    if k1_launches == 0 or k2_launches == 0:
+          f"{k2_launches}, K3 launches {k3_launches}", flush=True)
+    if k1_launches == 0 or k2_launches == 0 or k3_launches == 0:
         fail("a kernel of the path was never launched")
     if k1_launches != 3 * cfg.seq_len * temporal_batches:
         fail(f"K1 launched {k1_launches} times for {temporal_batches} window batches")
-    if k2_launches != stage1_batches:
-        fail(f"K2 launched {k2_launches} times for {stage1_batches} stage-1 batches")
+    if k2_launches != stage1_batches or k3_launches != stage1_batches:
+        fail(f"K2 launched {k2_launches} and K3 {k3_launches} times for "
+             f"{stage1_batches} stage-1 batches")
 
     # protocol: a session's prediction is offline window_infer on its cubes
     # (to float-rounding: cuBLAS may pick another product kernel for the
@@ -427,7 +517,8 @@ def phase_slice() -> dict:
         print(f"slice: {name} profile {json.dumps(profile_step(fn))}", flush=True)
     print(f"slice: device steps {json.dumps(steps)}", flush=True)
     model.close()
-    return {"cube_conv3x3": k1_launches, "equi_to_cube": k2_launches}
+    return {"cube_conv3x3": k1_launches, "equi_to_cube": k2_launches,
+            "cube_pool3x3s2": k3_launches}
 
 
 # ---- phase 4: the training step ----------------------------------------------
@@ -585,9 +676,373 @@ def phase_train() -> dict:
     return {"cube_conv3x3": k1, "cube_conv3x3_dx": dx}
 
 
-def profile_step(fn, top: int = 12) -> dict:
+# ---- phase 5: the offline video pipeline ---------------------------------------
+
+GOLDEN_CONFIG = """\
+data_vid_path: {root}/dataset
+label_path: {root}/Wild360_GT
+output_path: {root}/output
+checkpoint_path: {root}/checkpoint
+test_mode: true
+train_mode: false
+cube_pad: true
+opt_flow: false
+equi_h: {cols}
+equi_w: {rows}
+cube_dim: 224
+hidden_size: {classes}
+input_size: {classes}
+seq_len: {seq}
+compute_dtype: float32
+host_cube_remap: false
+feat_dtype: float32
+extract_batch: 4
+"""
+# how far stage 2 from the full-geometry golden's f16-stored feats lies
+# from the golden's own predictions and aggregate, with the JAX package in
+# f32 on the CPU (tools/e2e_full_f16_drift.py); the card is held within
+# this drift plus a margin
+E2E_FULL_F16_PRED_DRIFT = 1.328587532043457e-4  # max |pred - golden|
+E2E_FULL_F16_AGG_DRIFT = 6.573300846030028e-5  # max over CC, AUC, AUCB
+
+
+def synth_tensor(key: str, shape) -> np.ndarray:
+    """The goldens' deterministic reference weights (tools/ref_shim.py
+    ``synth_tensor``, scheme "v2", as ``tests/test_e2e_golden.py`` rebuilds
+    them)."""
+    import zlib
+
+    rs = np.random.RandomState(zlib.crc32(("v2:" + key).encode()) % (2**31))
+    if key.endswith("num_batches_tracked"):
+        return np.zeros(shape, np.int64)
+    if key.endswith("running_var"):
+        return rs.uniform(0.8, 1.2, size=shape).astype(np.float32)
+    if key.endswith("running_mean"):
+        return (rs.randn(*shape) * 0.1).astype(np.float32)
+    if len(shape) == 1 and key.endswith(".weight"):  # BN gamma
+        return rs.uniform(0.9, 1.1, size=shape).astype(np.float32)
+    if len(shape) == 1:  # bias
+        return (rs.randn(*shape) * 0.1).astype(np.float32)
+    if len(shape) == 4:  # conv [O, I, kh, kw]
+        o, i, kh, kw = shape
+        w = (rs.randn(*shape) * (0.15 / np.sqrt(i * kh * kw))).astype(np.float32)
+        w[:, :, kh // 2, kw // 2] += (rs.randn(o, i) * (1.2 / np.sqrt(i))).astype(np.float32)
+        return w
+    return (rs.randn(*shape) * 0.05).astype(np.float32)
+
+
+class Golden:
+    """One end-to-end golden (``tests/golden/e2e*``) laid out as the CLIs
+    read it under ``root``: videos, GT, the reference's feats under
+    ``ref_arts``, its weights as ``.npz`` and a config."""
+
+    def __init__(self, name: str, root: Path):
+        from cp360_tpu_torch.compat import jax_params
+
+        self.dir = ROOT / "tests" / "golden" / name
+        self.g = np.load(self.dir / "e2e_golden.npz")
+        self.root = root
+        self.vids = [str(v) for v in self.g["vids"]]
+        self.seed = int(self.g["metric_seed"])
+        classes = int(self.g["num_classes"])
+        cols = int(self.g["equi_cols"]) if "equi_cols" in self.g.files else 448
+        rows = int(self.g["equi_rows"]) if "equi_rows" in self.g.files else 224
+        (root / "dataset" / "test").mkdir(parents=True)
+        for vid in self.vids:
+            shutil.copy(self.dir / f"{vid}.mp4", root / "dataset" / "test" / f"{vid}.mp4")
+            for group, sub in (("gt", Path("Wild360_GT") / f"{vid}.mp4"),
+                               ("feat", Path("ref_arts") / vid / "cube_feat")):
+                (root / sub).mkdir(parents=True)
+                for name_, arr in self.group(group, vid).items():
+                    np.save(root / sub / f"{name_}.npy", arr)
+        self.config = root / "config.yaml"
+        self.config.write_text(GOLDEN_CONFIG.format(
+            root=root, cols=cols, rows=rows, classes=classes, seq=int(self.g["seq_len"])))
+        jax_params.save_npz(str(root / "resnet50.npz"), jax_params.convert_resnet_state_dict(
+            self.weights("resnet"), "resnet50"))
+        jax_params.save_npz(str(root / "clstm.npz"),
+                            jax_params.convert_clstm_state_dict(self.weights("clstm")))
+
+    def group(self, group: str, vid: str) -> dict:
+        pre = f"{group}/{vid}/"
+        return {k[len(pre):]: self.g[k] for k in self.g.files if k.startswith(pre)}
+
+    def weights(self, prefix: str) -> dict:
+        keys = [str(k) for k in self.g[f"{prefix}_keys"]]
+        shapes = [tuple(int(d) for d in s.split(",") if d) for s in self.g[f"{prefix}_shapes"]]
+        return {k: synth_tensor(k, sh) for k, sh in zip(keys, shapes)}
+
+    def result(self):
+        return parse_result(str(self.g["result_txt"]))
+
+
+def parse_result(text: str):
+    """(CC, AUC, AUCB) from "total result:<CC>, <AUC>, <AUCB>"."""
+    return [float(x) for x in text.strip().split("total result:")[1].split(",")]
+
+
+def run_test_temporal(root: Path, model: Path, art_dir: Path, config: Path, seed: int,
+                      *extra: str):
+    """``cli.test_temporal.main`` on the card, from ``root``, after
+    np.random.seed(seed); returns (result (CC, AUC, AUCB), host seconds,
+    K1 launches)."""
+    from cp360_tpu_torch.cli import test_temporal
+    from cp360_tpu_torch.ops import cube_conv
+
+    cwd = Path.cwd()
+    os.chdir(root)
+    np.random.seed(seed)
+    k1 = cube_conv.launches
+    try:
+        t0 = time.monotonic()
+        test_temporal.main(["--device", "cuda", "--model", str(model), "--dir", str(art_dir),
+                            "--config", str(config), *extra])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        result = parse_result((root / f"{art_dir.name}_result.txt").read_text())
+    finally:
+        os.chdir(cwd)
+    return result, wall, cube_conv.launches - k1
+
+
+def window_batches(art_dir: Path, vids, seq_len: int, batch_windows: int) -> int:
+    from cp360_tpu_torch.pipelines.temporal import video_windows
+
+    n = [max(0, len(video_windows(str(art_dir / v / "cube_feat"))) - seq_len) for v in vids]
+    return sum(-(-w // batch_windows) for w in n)
+
+
+def synthetic_gt(root: Path, vid: str, ids, rng) -> None:
+    """120x240 GT maps with a few Gaussian blobs, so mean+2*std fixations
+    exist."""
+    d = root / f"{vid}.mp4"
+    d.mkdir(parents=True)
+    yy, xx = np.mgrid[0:120, 0:240]
+    for i in ids:
+        m = np.zeros((120, 240), np.float32)
+        for _ in range(3):
+            cy, cx = rng.randint(10, 110), rng.randint(10, 230)
+            m += np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 60.0).astype(np.float32)
+        np.save(d / f"{i:05}.npy", m)
+
+
+def phase_video() -> dict:
+    from cp360_tpu_torch.cli import extract_features
+    from cp360_tpu_torch.compat import jax_params
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.data.dataset import builtin_split
+    from cp360_tpu_torch.ops import cube_conv, cube_pool, equi_gather
+    from cp360_tpu_torch.pipelines.extract import extract_frames, stage1_batch
+    from cp360_tpu_torch.pipelines.temporal import infer_video
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_video_", dir=build))
+    stats = {"card": gpu_line()}
+    try:
+        # -- extraction at full width: 2 videos x 24 seeded 960x1920 frames
+        cfg = Config(cube_dim=224, equi_h=1920, equi_w=960, input_size=1000,
+                     hidden_size=1000, seq_len=5, compute_dtype="bfloat16",
+                     host_cube_remap=False, extract_batch=16, opt_flow=False,
+                     feat_dtype="float16")
+        t0 = time.monotonic()
+        model = jax_params.resnet_from_params(jax_params.init_resnet_params(SEED, "resnet50"),
+                                              "resnet50", True, torch.bfloat16, "cuda")
+        rng = np.random.RandomState(SEED + 5)
+        vids = builtin_split("test_25")[:2]
+        videos = {v: [rng.randint(0, 256, (960, 1920, 3), dtype=np.uint8) for _ in range(24)]
+                  for v in vids}
+        x16 = torch.from_numpy(np.stack(videos[vids[0]][:16])).cuda()
+        with torch.no_grad():  # the reference batch, and the warm-up
+            direct = stage1_batch(model, x16, 224, out_dtype=torch.float16)[0].cpu().numpy()
+        torch.cuda.synchronize()
+        print(f"video: model, frames and warm-up in {time.monotonic() - t0:.1f} s", flush=True)
+
+        art = tmp / "static_resnet50"
+        cube_conv.launches = equi_gather.launches = cube_pool.launches = 0
+        t0 = time.monotonic()
+        written = sum(extract_frames(model, cfg, videos[v], str(art / v), output_img=True,
+                                     output_feature=True) for v in vids)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        k2, k3 = equi_gather.launches, cube_pool.launches
+        n_batches = 2 * len(vids)  # 23 artifacts per video: 16 + a padded 7
+        stats.update(extract_frames=written, extract_s=wall, extract_fps=written / wall,
+                     extract_batches=n_batches)
+        print(f"video: extract_frames wrote {written} frames (with -oi images) in "
+              f"{wall:.2f} s, {written / wall:.2f} frames/s; K2 launches {k2}, "
+              f"K3 launches {k3}", flush=True)
+        if written != 23 * len(vids):
+            fail(f"extract_frames wrote {written} frames, want {23 * len(vids)}")
+        if k2 != n_batches or k3 != n_batches:
+            fail(f"K2 {k2} and K3 {k3} launches for {n_batches} stage-1 batches")
+        for v in vids:
+            names = sorted(os.listdir(art / v / "cube_feat"))
+            if names != [f"{i:06}.npy" for i in range(2, 25)]:
+                fail(f"{v}: artifacts {names[:3]}..{names[-2:]}")
+            if len(os.listdir(art / v / "img")) != 23:
+                fail(f"{v}: {len(os.listdir(art / v / 'img'))} images, want 23")
+        batch_err = 0.0
+        for k in range(16):
+            a = np.load(art / vids[0] / "cube_feat" / f"{k + 2:06}.npy")
+            if a.shape != (6, 1000, 7, 7) or a.dtype != np.float16:
+                fail(f"artifact {k + 2:06} is {a.shape} {a.dtype}")
+            batch_err = max(batch_err, float(np.abs(a.astype(np.float32) - direct[k].transpose(
+                0, 3, 1, 2).astype(np.float32)).max()))
+        print(f"video: first batch's artifacts vs stage1_batch on the same frames: "
+              f"max|err| {batch_err}", flush=True)
+        if batch_err != 0.0:
+            fail(f"extracted artifacts differ from stage1_batch by {batch_err}")
+        del direct
+
+        # -- the extraction CLI on the full-geometry golden's mp4s (cv2), in
+        # both stage-1 forms: all-device (K2 + K3), and the host cv2 remap
+        # with the int8 codec (K3 only)
+        full = Golden("e2e_full", tmp / "full")
+        for out, extra, want_k2 in (("static", [], True),
+                                    ("remap", ["--set", "host_cube_remap=true",
+                                               "--set", "transfer_codec=int8"], False)):
+            cwd = Path.cwd()
+            os.chdir(full.root)
+            k2, k3 = equi_gather.launches, cube_pool.launches
+            try:
+                t0 = time.monotonic()
+                extract_features.main(["--device", "cuda", "--out", out, "--mode", "resnet50",
+                                       "-of", "--weights", str(full.root / "resnet50.npz"),
+                                       "--config", str(full.config), *extra])
+                torch.cuda.synchronize()
+                cli_s = time.monotonic() - t0
+            finally:
+                os.chdir(cwd)
+            worst = 0.0
+            for vid in full.vids:
+                ours_dir = full.root / "output" / f"{out}_resnet50" / vid / "cube_feat"
+                want = full.group("feat", vid)
+                if sorted(p[:-4] for p in os.listdir(ours_dir)) != sorted(want):
+                    fail(f"{vid}: golden artifact numbering differs")
+                for cnt, ref in want.items():
+                    ref = ref.astype(np.float32)
+                    ours = np.load(ours_dir / f"{cnt}.npy")
+                    worst = max(worst, float(np.abs(ours - ref).max() / np.abs(ref).max()))
+            k2, k3 = equi_gather.launches - k2, cube_pool.launches - k3
+            stats.update({f"golden_extract_{out}_rel_err": worst,
+                          f"golden_extract_{out}_s": cli_s})
+            print(f"video: extract_features CLI {' '.join(extra) or '(all-device)'} on the "
+                  f"e2e_full golden mp4s in {cli_s:.1f} s: max relative CAM error {worst} "
+                  f"(limit 0.02); K2 {k2}, K3 {k3} launches", flush=True)
+            if not worst < 0.02 or k3 == 0 or k2 != (k3 if want_k2 else 0):
+                fail(f"golden extraction ({out}): relative error {worst}, K2 {k2}, K3 {k3}")
+
+        # -- stage 2 + metrics, exact composition, on the scaled golden
+        scaled = Golden("e2e", tmp / "scaled")
+        result, cli_s, k1 = run_test_temporal(scaled.root, scaled.root / "clstm.npz",
+                                              scaled.root / "ref_arts", scaled.config,
+                                              scaled.seed, "--batch-windows", "8")
+        pred_err = 0.0
+        for vid in scaled.vids:
+            for fidx, ref in scaled.group("pred", vid).items():
+                ours = np.load(scaled.root / "output" / "temporal" / vid / f"{fidx}.npy")
+                bad = np.abs(ours - ref) > 2e-5 + 1e-4 * np.abs(ref)
+                pred_err = max(pred_err, float(np.abs(ours - ref).max()))
+                if bad.any():
+                    fail(f"scaled golden {vid}/{fidx}: prediction off by {pred_err}")
+        agg_err = max(abs(a - b) for a, b in zip(result, scaled.result()))
+        want_k1 = 15 * window_batches(scaled.root / "ref_arts", scaled.vids, 5, 8)
+        stats.update(scaled_pred_err=pred_err, scaled_agg_err=agg_err)
+        print(f"video: test_temporal f32 on the scaled golden's feats: result {result}, "
+              f"golden {scaled.result()}; max|pred err| {pred_err} (atol 2e-5, rtol 1e-4), "
+              f"aggregate err {agg_err} (limit 1e-4); K1 {k1} (want {want_k1})", flush=True)
+        if not agg_err < 1e-4 or k1 != want_k1:
+            fail(f"scaled golden: aggregate off by {agg_err}, K1 {k1} != {want_k1}")
+
+        # -- stage 2 + metrics at full width, on the full golden's f16 feats
+        outs = {}
+        for dtype in ("float32", "bfloat16"):
+            out = full.root / f"out_{dtype}"
+            result, cli_s, k1 = run_test_temporal(
+                full.root, full.root / "clstm.npz", full.root / "ref_arts", full.config,
+                full.seed, "--batch-windows", "4", "--set", f"output_path={out}",
+                "--set", f"compute_dtype={dtype}")
+            preds = {(vid, f): np.load(out / "temporal" / vid / f"{f}.npy")
+                     for vid in full.vids for f in full.group("pred", vid)}
+            outs[dtype] = (result, preds, k1, cli_s)
+        result, preds, k1, cli_s = outs["float32"]
+        gold = {(vid, f): p for vid in full.vids for f, p in full.group("pred", vid).items()}
+        pred_err = max(float(np.abs(preds[k] - gold[k]).max()) for k in gold)
+        agg_err = max(abs(a - b) for a, b in zip(result, full.result()))
+        # margins: the card's f32 sums in another order than the CPU's
+        # (2e-5, the scaled golden's own atol) and what that does to the
+        # metrics' ranks (1e-4, the scaled golden's aggregate limit)
+        pred_tol = E2E_FULL_F16_PRED_DRIFT + 2e-5
+        agg_tol = E2E_FULL_F16_AGG_DRIFT + 1e-4
+        want_k1 = 15 * window_batches(full.root / "ref_arts", full.vids, 5, 4)
+        bf_pred = max(float(np.abs(outs["bfloat16"][1][k] - preds[k]).max()) for k in gold)
+        bf_agg = max(abs(a - b) for a, b in zip(outs["bfloat16"][0], result))
+        stats.update(full_pred_err=pred_err, full_agg_err=agg_err, full_pred_tol=pred_tol,
+                     full_agg_tol=agg_tol, full_bf16_vs_f32_pred=bf_pred,
+                     full_bf16_vs_f32_agg=bf_agg)
+        print(f"video: test_temporal f32 at full width on the e2e_full golden's f16 feats: "
+              f"result {result}, golden {full.result()}; max|pred err| {pred_err} "
+              f"(limit {pred_tol}), aggregate err {agg_err} (limit {agg_tol}); K1 {k1} "
+              f"(want {want_k1}); bf16 vs the card's f32: max|pred diff| {bf_pred}, "
+              f"aggregate diff {bf_agg}", flush=True)
+        if not (pred_err <= pred_tol and agg_err <= agg_tol) or k1 != want_k1 \
+                or outs["bfloat16"][2] != want_k1:
+            fail("full-width golden stage 2 out of its tolerance or K1 miscounted")
+
+        # -- stage 2 + metrics on the extracted artifacts, bf16, synthetic GT
+        gt_rng = np.random.RandomState(SEED + 6)
+        for v in vids:
+            synthetic_gt(tmp / "gt", v, range(4, 22), gt_rng)
+        synth_cfg = tmp / "synth.yaml"
+        synth_cfg.write_text(f"label_path: {tmp / 'gt'}\noutput_path: {tmp / 'out'}\n"
+                             "compute_dtype: bfloat16\n")
+        result, cli_s, k1 = run_test_temporal(tmp, full.root / "clstm.npz", art, synth_cfg,
+                                              SEED, "--batch-windows", "64")
+        want_k1 = 15 * window_batches(art, vids, 5, 64)
+        print(f"video: test_temporal bf16 on the extracted artifacts ({2 * 18} windows): "
+              f"result {result} in {cli_s:.1f} s (model load and metrics included); "
+              f"K1 {k1} (want {want_k1})", flush=True)
+        if not all(np.isfinite(result)) or k1 != want_k1:
+            fail(f"stage 2 on extracted artifacts: result {result}, K1 {k1}")
+        launches = {"cube_conv3x3": cube_conv.launches, "equi_to_cube": equi_gather.launches,
+                    "cube_pool3x3s2": cube_pool.launches}
+
+        # -- timings outside the counted runs
+        t0 = time.monotonic()  # extraction writing artifacts only (-of)
+        written = sum(extract_frames(model, cfg, videos[v], str(tmp / "feat_only" / v),
+                                     output_img=False) for v in vids)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        stats.update(extract_of_fps=written / wall, extract_of_s=wall)
+        cell = jax_params.clstm_from_params(jax_params.load_npz(str(full.root / "clstm.npz")),
+                                            torch.bfloat16, True, "pallas", "cuda")
+        long_dir = tmp / "long" / vids[0] / "cube_feat"  # 133 frames: 2 x 64 windows
+        long_dir.mkdir(parents=True)
+        for i in range(2, 2 + 133):
+            np.save(long_dir / f"{i:06}.npy",
+                    rng.gamma(0.5, 2.0, (6, 1000, 7, 7)).astype(np.float16))
+        infer_video(cell, str(long_dir), 5, batch_windows=64)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        n_win = len(infer_video(cell, str(long_dir), 5, batch_windows=64))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        stats.update(infer_windows=n_win, infer_s=wall, infer_windows_per_s=n_win / wall)
+        with torch.no_grad():
+            prof = profile_step(lambda: stage1_batch(model, x16, 224, out_dtype=torch.float16),
+                                top=14, match="cube_pool3x3s2")
+        print(f"video: stage-1 step, 16 frames, profile {json.dumps(prof)}", flush=True)
+        print(f"video: {json.dumps(stats)}", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def profile_step(fn, top: int = 12, match: str = "") -> dict:
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    with the device's busy share of the call's host-clock wall time."""
+    with the device's busy share of the call's host-clock wall time; rows
+    whose name holds ``match`` are listed too, wherever they rank."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -604,16 +1059,20 @@ def profile_step(fn, top: int = 12) -> dict:
         return {"wall_ms": wall_ms, "device": "not measured (no device events)"}
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "top": [[e.key[:90], e.count, e.self_device_time_total / 1e3]
-                    for e in dev[:top]]}
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+           "top": [[e.key[:90], e.count, e.self_device_time_total / 1e3]
+                   for e in dev[:top]]}
+    if match:
+        res["matched"] = [[e.key[:90], e.count, e.self_device_time_total / 1e3]
+                          for e in dev if match in e.key]
+    return res
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="build,kernels,slice,train",
-                        help="comma-separated subset of build,kernels,slice,train")
+    parser.add_argument("--phases", default="build,kernels,slice,train,video",
+                        help="comma-separated subset of build,kernels,slice,train,video")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -637,6 +1096,8 @@ def main(argv=None) -> None:
         by_path["slice"] = phase_slice()
     if "train" in phases:
         by_path["train"] = phase_train()
+    if "video" in phases:
+        by_path["video"] = phase_video()
 
     meta = {
         "cube_conv3x3": ("cp360_tpu_torch/csrc/cube_conv3x3.cu",
@@ -645,6 +1106,8 @@ def main(argv=None) -> None:
                             "cp360_tpu/ops/pallas_kernels.py:258"),
         "equi_to_cube": ("cp360_tpu_torch/csrc/equi_to_cube.cu",
                          "cp360_tpu/ops/slot_gather.py:212"),
+        "cube_pool3x3s2": ("cp360_tpu_torch/csrc/cube_pool3x3s2.cu",
+                           "tools/bench_pool_pallas.py:39"),
     }
     line = []
     for name, (source, replaces) in meta.items():

@@ -19,8 +19,9 @@ modules:
 It also reads and writes the JAX package's flat ``.npz`` checkpoints (own
 copies of ``flatten_params`` / ``unflatten_params`` / ``save_npz`` /
 ``load_npz``, ``cp360_tpu/compat/torch_weights.py:121-165``), converts the
-reference's ConvLSTM state-dict names (:func:`convert_clstm_state_dict`,
-``torch_weights.py:84-114``) and makes seeded random
+reference's state dicts (:func:`convert_resnet_state_dict` for the
+torchvision ResNet-50, :func:`convert_clstm_state_dict` for the ConvLSTM,
+``torch_weights.py:50-114``) and makes seeded random
 parameters for smoke runs: numpy ``RandomState``, He-normal fan-out as
 ``cp360_tpu/models/layers.py:112`` (reference model/resnet_cubic.py:137-143,
 model/clstm.py:84-90).  The numbers differ from ``jax.random``'s for the
@@ -97,6 +98,40 @@ def load_npz(path: str):
         return unflatten_params(dict(f))
 
 
+def _hwio(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).transpose(2, 3, 1, 0))
+
+
+def _bn_sd(sd: Mapping[str, np.ndarray], prefix: str) -> dict:
+    return {"scale": np.asarray(sd[f"{prefix}.weight"]), "bias": np.asarray(sd[f"{prefix}.bias"]),
+            "mean": np.asarray(sd[f"{prefix}.running_mean"]),
+            "var": np.asarray(sd[f"{prefix}.running_var"])}
+
+
+def convert_resnet_state_dict(sd: Mapping[str, np.ndarray], arch: str = "resnet50") -> dict:
+    """torchvision-style ResNet state dict (OIHW convs, ``fc.weight``
+    [K, C]) -> the JAX package's ResNet param tree (HWIO, ``fc`` [C, K])."""
+    if arch not in ARCHS:
+        raise NotImplementedError(f"arch {arch!r} is not ported yet; see ROADMAP.md")
+    params = {"conv1": {"w": _hwio(sd["conv1.weight"])}, "bn1": _bn_sd(sd, "bn1")}
+    for li, depth in enumerate(ARCHS[arch]):
+        stage = []
+        for bi in range(depth):
+            pre = f"layer{li + 1}.{bi}"
+            blk = {}
+            for ci in (1, 2, 3):
+                blk[f"conv{ci}"] = {"w": _hwio(sd[f"{pre}.conv{ci}.weight"])}
+                blk[f"bn{ci}"] = _bn_sd(sd, f"{pre}.bn{ci}")
+            if f"{pre}.downsample.0.weight" in sd:
+                blk["downsample"] = {"conv": {"w": _hwio(sd[f"{pre}.downsample.0.weight"])},
+                                     "bn": _bn_sd(sd, f"{pre}.downsample.1")}
+            stage.append(blk)
+        params[f"layer{li + 1}"] = stage
+    params["fc"] = {"w": np.ascontiguousarray(np.asarray(sd["fc.weight"]).T),
+                    "b": np.asarray(sd["fc.bias"])}
+    return params
+
+
 _CLSTM_NAME_MAP = {"Conv1": "conv1", "Conv2": "conv2", "Gates": "gates"}
 
 
@@ -117,8 +152,7 @@ def convert_clstm_state_dict(sd: Mapping[str, np.ndarray]) -> dict:
             raise ValueError(f"CLSTM checkpoint has {len(vals)} tensors, expected 6")
         order = [(n, p) for n in ("conv1", "conv2", "gates") for p in ("weight", "bias")]
         named = {o: np.asarray(v) for o, v in zip(order, vals)}
-    return {name: {"w": np.ascontiguousarray(named[(name, "weight")].transpose(2, 3, 1, 0)),
-                   "b": named[(name, "bias")]}
+    return {name: {"w": _hwio(named[(name, "weight")]), "b": named[(name, "bias")]}
             for name in ("conv1", "conv2", "gates")}
 
 

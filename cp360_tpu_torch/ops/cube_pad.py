@@ -28,7 +28,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cp360_tpu_torch.models import layers
 
 Pads = Union[int, Sequence[int]]
 
@@ -209,16 +208,14 @@ def cube_pad_max_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
 
     x: [N, 6, H, W, C] (H = W, even) -> [N, 6, H/2, W/2, C].  Replaces the
     reference's CubePadding(1) + nn.MaxPool2d(3, 2)
-    (model/resnet_cubic.py:118-119,166-167).  The JAX package pools the
-    unpadded faces and max-corrects row 0 / column 0 with the halo strips
+    (model/resnet_cubic.py:118-119,166-167).  A CUDA tensor launches K3
+    (``ops/cube_pool.py``, ``csrc/cube_pool3x3s2.cu``); a CPU tensor runs
+    its plain pad-then-pool form.  The JAX package pools the unpadded faces
+    and max-corrects row 0 / column 0 with the halo strips
     (``cp360_tpu/ops/cube_pad.py::cube_pad_max_pool_3x3s2``); max does not
-    depend on how a window's cells are grouped, so this pad-then-pool form
-    is bit-exact with it.
+    depend on how a window's cells are grouped, so both are bit-exact with
+    it.
     """
-    _check_cube(x)
-    n, _, h, w, c = x.shape
-    if h % 2:
-        raise ValueError(f"the fused stem pool needs an even face size, got {h}")
-    xp = cube_pad(x, 1).reshape(n * 6, h + 2, w + 2, c)
-    out = layers.max_pool(xp, 3, 2)
-    return out.reshape(n, 6, h // 2, w // 2, c)
+    from cp360_tpu_torch.ops import cube_pool  # imports this module
+
+    return cube_pool.cube_pad_max_pool_3x3s2(x)

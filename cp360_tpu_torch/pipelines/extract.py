@@ -1,42 +1,62 @@
-"""Stage-1 device steps: frame -> CAM cube + equirectangular saliency.
+"""Stage-1 extraction: video -> per-frame CAM cubes (+ overlay images).
 
-The counterparts of ``cp360_tpu/pipelines/extract.py::stage1_batch`` (:288,
-the all-device step from u8 equirectangular frames) and
-``stage1_batch_faces`` (:40, from faces sampled on the host).  Everything
+The device steps are the counterparts of
+``cp360_tpu/pipelines/extract.py::stage1_batch`` (:288, the all-device step
+from u8 equirectangular frames) and ``stage1_batch_faces`` (:40, from faces
+sampled on the host, with the optional int8 transfer codec).  Everything
 between the decoded frame and the saliency map runs on the device:
 equi->cube (the hand kernel of ops/equi_gather.py, with the /255 fused),
-ImageNet normalization, the cube-padded ResNet CAM, cube->equi and the
-squared channel max (dataset_feat_extractor.py:173-176).
+ImageNet normalization, the cube-padded ResNet CAM (its stem pool is the
+hand kernel of ops/cube_pool.py), cube->equi and the squared channel max
+(dataset_feat_extractor.py:173-176).
 
-:func:`host_equi_to_cube_u8` is the host remap of ``host_cube_remap: true``
-(cv2, imported when called).
+:func:`extract_frames` is the batch loop of ``extract_video`` (:388) over
+any iterable of decoded BGR frames; :func:`extract_video` feeds it from
+``cv2.VideoCapture``.  Artifacts keep the reference's layout
+(dataset_feat_extractor.py:102-137,181-193): ``<out>/cube_feat/NNNNNN.npy``
+[6, 1000, 7, 7] in ``feat_dtype``, ``<out>/img/NNNNNN.jpg`` and the overlay
+``<out>/NNNNNN.jpg``; numbering starts at 000002 and artifact k holds video
+frame k-2.  Optical flow (``-om`` with ``opt_flow: true``) is not ported.
+
+cv2 and PIL are imported only where they are used: the video decoder, the
+host remap of ``host_cube_remap: true`` (:func:`host_equi_to_cube_u8`), a
+frame resize, and the images of ``output_img``.
 """
 
 from __future__ import annotations
 
+import os
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from cp360_tpu_torch.config import Config
 from cp360_tpu_torch.geometry import build_equi2cube_maps
 from cp360_tpu_torch.models.cam import cam_forward
 from cp360_tpu_torch.models.resnet import ResNet
 from cp360_tpu_torch.ops import equi_gather
+from cp360_tpu_torch.ops.quantize import dequantize_cam_np, quantize_cam
 from cp360_tpu_torch.ops.resample import cube_to_equi
+from cp360_tpu_torch.utils.atomic import atomic_save
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def _cam_and_saliency(model: ResNet, cubes01: torch.Tensor, out_dtype: torch.dtype):
+def _cam_and_saliency(model: ResNet, cubes01: torch.Tensor):
+    """(f32 score cube [N, 6, h, w, K], saliency [N, 2h, 4w])."""
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=cubes01.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=cubes01.device)
     cubes = (cubes01 - mean) / std
     scores, _ = cam_forward(model, cubes)
     equi_scores = cube_to_equi(scores)  # [N, 2h, 4w, K]
     sal = torch.amax(equi_scores, dim=-1) ** 2
-    return scores.to(out_dtype), sal
+    return scores, sal
 
 
 def stage1_batch(model: ResNet, frames_u8: torch.Tensor, cube_dim: int = 224,
@@ -53,19 +73,29 @@ def stage1_batch(model: ResNet, frames_u8: torch.Tensor, cube_dim: int = 224,
               scores, squared).
     """
     cubes01 = equi_gather.equi_to_cube(frames_u8, cube_dim)  # [N, 6, cd, cd, 3]
-    return _cam_and_saliency(model, cubes01, out_dtype)
+    scores, sal = _cam_and_saliency(model, cubes01)
+    return scores.to(out_dtype), sal
 
 
 def stage1_batch_faces(model: ResNet, faces_u8: torch.Tensor,
-                       out_dtype: torch.dtype = torch.float16):
+                       out_dtype: torch.dtype = torch.float16, codec: str = "none"):
     """Device step from cube faces sampled on the host.
 
     Args:
       faces_u8: [N, 6, cd, cd, 3] uint8 cube faces (:func:`host_equi_to_cube_u8`).
+      codec: "int8" quantizes the score cube on the device
+        (ops/quantize.py, f16 scales), so about half the bytes cross back;
+        the caller dequantizes before writing the float artifact.
 
-    Returns (scores [N, 6, h, w, K] ``out_dtype``, sal [N, 2h, 4w] f32).
+    Returns (scores [N, 6, h, w, K] ``out_dtype``, sal [N, 2h, 4w] f32), or
+    with ``codec="int8"`` (q int8 [N, 6, h, w, K], scales f16
+    [N, 6, 1, 1, K], sal).
     """
-    return _cam_and_saliency(model, faces_u8.float() / 255.0, out_dtype)
+    scores, sal = _cam_and_saliency(model, faces_u8.float() / 255.0)
+    if codec == "int8":
+        q, scales = quantize_cam(scores, scale_dtype=torch.float16)
+        return q, scales, sal
+    return scores.to(out_dtype), sal
 
 
 @lru_cache(maxsize=8)
@@ -86,3 +116,214 @@ def host_equi_to_cube_u8(frame_u8: np.ndarray, cube_dim: int) -> np.ndarray:
     for f in range(6):
         faces[f] = cv2.remap(frame_u8, in_x[f], in_y[f], cv2.INTER_LINEAR)
     return faces
+
+
+# ---- the extraction loop ------------------------------------------------------
+
+
+def check_extract_config(cfg: Config, output_motion: bool) -> None:
+    """Refuse what the port's extraction does not run (yet)."""
+    if output_motion and cfg.opt_flow:
+        raise NotImplementedError(
+            "optical flow (-om with opt_flow: true) is not ported yet; see ROADMAP.md "
+            "queue 1 item 7 (or set opt_flow: false)")
+    if cfg.host_cube_remap and cfg.upload_format != "rgb8":
+        raise NotImplementedError(
+            f"upload_format {cfg.upload_format!r} is not ported yet (the port "
+            "uploads rgb8); see ROADMAP.md queue 1 item 1")
+    if cfg.transfer_codec not in ("none", "int8"):
+        # 'auto' resolves through the JAX package's TPU link probe, which
+        # the port does not carry
+        raise ValueError(f"transfer_codec={cfg.transfer_codec!r} is not one of "
+                         "'none', 'int8'")
+
+
+def _artifacts_exist(cnt, feat_dir, img_dir, out_dir, need_feat, need_img) -> bool:
+    if need_feat and not os.path.exists(os.path.join(feat_dir, f"{cnt:06}.npy")):
+        return False
+    if need_img and not (os.path.exists(os.path.join(img_dir, f"{cnt:06}.jpg"))
+                         and os.path.exists(os.path.join(out_dir, f"{cnt:06}.jpg"))):
+        return False
+    return need_feat or need_img
+
+
+def _atomic_pil_save(img, path: str) -> None:
+    """PIL save that lands atomically (utils/atomic.py's contract: the temp
+    name carries no image extension, so the format is passed explicitly)."""
+    tmp = path + ".tmp"
+    fmt = {"jpg": "JPEG", "jpeg": "JPEG", "png": "PNG"}[path.rsplit(".", 1)[1].lower()]
+    img.save(tmp, format=fmt)
+    os.replace(tmp, path)
+
+
+def _resize_frame(frame_bgr: np.ndarray, cfg: Config) -> np.ndarray:
+    """A decoded frame -> the [rows, cols, 3] u8 working frame (LANCZOS).
+
+    The reference wraps the raw cv2 (BGR) frame in PIL without a channel
+    conversion (dataset_feat_extractor.py:127-131), so the CNN sees B and
+    R swapped; kept for artifact parity.  A frame already at
+    ``cfg.frame_hw`` is returned as it is, without PIL: Pillow's
+    ``resize`` to the image's own size returns a plain copy, and
+    ``convert("RGB")`` of a 3-channel u8 image is the identity, so the
+    bytes are the same.
+    """
+    rows, cols = cfg.frame_hw
+    if frame_bgr.shape[:2] == (rows, cols):
+        return np.ascontiguousarray(frame_bgr, dtype=np.uint8)
+    from PIL import Image
+
+    img = Image.fromarray(frame_bgr).convert("RGB")
+    img = img.resize((cols, rows), resample=getattr(Image, "LANCZOS", None)
+                     or Image.Resampling.LANCZOS)
+    return np.asarray(img, dtype=np.uint8)
+
+
+def _model_device(model: ResNet) -> torch.device:
+    return next(iter(model.buffers())).device
+
+
+def extract_frames(model: ResNet, cfg: Config, frames: Iterable[np.ndarray], out_dir: str,
+                   output_img: bool = True, output_feature: bool = True,
+                   output_motion: bool = False, max_frames: Optional[int] = None,
+                   name: str = "frames") -> int:
+    """Stage 1 over a stream of decoded BGR u8 frames; returns the number of
+    frames written or found complete.
+
+    The first frame only seeds the reference's lag: artifact k = i + 1
+    holds frame i - 1, so numbering starts at 000002.  Frames go to the
+    model's device in batches of ``cfg.extract_batch``, the tail batch
+    padded with its last frame so every batch has one shape;
+    ``cfg.host_cube_remap`` picks the host cv2 remap (``stage1_batch_faces``,
+    optional int8 codec) or the all-device step (``stage1_batch``).  Up to
+    ``cfg.fetch_depth`` batches stay in flight on the device before the
+    oldest is copied back and written, so the host decodes and writes
+    while the device computes.  Extraction resumes:
+    frames whose requested artifacts exist are skipped, and every file is
+    written atomically, so an existing one is complete.
+    """
+    check_extract_config(cfg, output_motion)
+    batch_frames = cfg.extract_batch
+    device = _model_device(model)
+    pin = device.type == "cuda"
+    feat_dir = os.path.join(out_dir, "cube_feat")
+    img_dir = os.path.join(out_dir, "img")
+    for d in (out_dir, feat_dir, img_dir):
+        os.makedirs(d, exist_ok=True)
+    out_dtype = torch.float16 if cfg.feat_dtype == "float16" else torch.float32
+    np_dtype = np.float16 if cfg.feat_dtype == "float16" else np.float32
+    codec = cfg.transfer_codec if cfg.host_cube_remap else "none"
+    fetch_depth = max(1, cfg.fetch_depth)
+    written = 0
+
+    def compute(batch, remap_futs):
+        """Stack, pad and launch one batch; returns its pending record."""
+        if cfg.host_cube_remap:
+            items = [f.result() for f in remap_futs]
+        else:
+            items = [b[1] for b in batch]
+        items += [items[-1]] * (batch_frames - len(items))
+        # stacked straight into (pinned, on a card) staging memory: one
+        # host copy per frame
+        host = torch.empty((len(items), *items[0].shape), dtype=torch.uint8, pin_memory=pin)
+        np.stack(items, out=host.numpy())
+        x = host.to(device, non_blocking=True)
+        if cfg.host_cube_remap:
+            out = stage1_batch_faces(model, x, out_dtype=out_dtype, codec=codec)
+        else:
+            out = stage1_batch(model, x, cfg.cube_dim, out_dtype=out_dtype)
+        # the artifact layout [N, 6, K, h, w], made contiguous on the device:
+        # np.save of a transposed view writes element by element
+        out = (*(t.permute(0, 1, 4, 2, 3).contiguous() for t in out[:-1]), out[-1])
+        return batch, out, host
+
+    def flush(pending) -> None:
+        nonlocal written
+        batch, out, _ = pending
+        if len(out) == 3:  # int8 codec: (q, scales, sal) crossed back
+            q, scales, sals = (t.cpu().numpy() for t in out)
+            scores = dequantize_cam_np(q, scales, np_dtype)
+        else:
+            scores, sals = (t.cpu().numpy() for t in out)
+        for k, (cnt, frame_u8) in enumerate(batch):
+            if output_feature:  # reference layout [6, K, h, w]
+                atomic_save(os.path.join(feat_dir, f"{cnt:06}.npy"), scores[k])
+            if output_img:
+                from PIL import Image
+
+                from cp360_tpu_torch.imaging.overlay import overlay
+
+                img = Image.fromarray(frame_u8)
+                _atomic_pil_save(overlay(img, sals[k]), os.path.join(out_dir, f"{cnt:06}.jpg"))
+                _atomic_pil_save(img, os.path.join(img_dir, f"{cnt:06}.jpg"))
+            written += 1
+
+    t_start = time.time()
+    remap_pool = (ThreadPoolExecutor(max_workers=max(2, cfg.processes))
+                  if cfg.host_cube_remap else None)
+    pendings: deque = deque()
+    batch, remap_futs = [], []
+    prev = None
+    try:
+        with torch.no_grad():
+            for i, frame in enumerate(frames):
+                if max_frames is not None and i >= max_frames:
+                    break
+                if i == 0:
+                    prev = frame
+                    continue
+                cnt = i + 1  # reference numbering starts at 000002
+                if _artifacts_exist(cnt, feat_dir, img_dir, out_dir, output_feature,
+                                    output_img):
+                    written += 1
+                    prev = frame
+                    continue
+                frame_u8 = _resize_frame(prev, cfg)
+                batch.append((cnt, frame_u8))
+                if remap_pool is not None:
+                    remap_futs.append(remap_pool.submit(host_equi_to_cube_u8, frame_u8,
+                                                        cfg.cube_dim))
+                prev = frame
+                if len(batch) == batch_frames:
+                    pendings.append(compute(batch, remap_futs))
+                    batch, remap_futs = [], []
+                    while len(pendings) > fetch_depth:
+                        flush(pendings.popleft())
+            if batch:
+                pendings.append(compute(batch, remap_futs))
+            while pendings:
+                flush(pendings.popleft())
+    finally:
+        if remap_pool is not None:
+            remap_pool.shutdown(wait=True, cancel_futures=True)
+    print(f"{name}: {written} frames in {time.time() - t_start:.1f}s")
+    return written
+
+
+def _video_frames(cap, total: int) -> Iterator[np.ndarray]:
+    for _ in range(total):
+        ok, frame = cap.read()
+        if not ok:
+            return
+        yield frame
+
+
+def extract_video(model: ResNet, cfg: Config, vid_path: str, out_dir: str,
+                  output_img: bool = True, output_feature: bool = True,
+                  output_motion: bool = False, max_frames: Optional[int] = None) -> int:
+    """:func:`extract_frames` over the frames ``cv2.VideoCapture`` decodes
+    from ``vid_path`` (up to its frame count, or ``max_frames``).  An
+    unreadable path raises ``FileNotFoundError``."""
+    import cv2
+
+    cap = cv2.VideoCapture(vid_path)
+    try:
+        if not cap.isOpened():
+            raise FileNotFoundError(
+                f"cannot open video {vid_path!r} (missing file or unsupported codec)")
+        total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        return extract_frames(model, cfg, _video_frames(cap, total), out_dir,
+                              output_img=output_img, output_feature=output_feature,
+                              output_motion=output_motion, max_frames=max_frames,
+                              name=vid_path)
+    finally:
+        cap.release()

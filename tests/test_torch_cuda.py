@@ -12,14 +12,16 @@ bf16-rounded inputs at 1e-2 of max|ref| (both accumulate in f32; they differ
 by summation order and the kernel's one bf16 rounding, at most one bf16 ulp
 ~0.4%); f32 at 1e-4 of max|ref| + 1e-4; the equi->cube gather at 1e-6.  The
 input-gradient kernel (dx) is held the same way against autograd of the
-plain cube pad + conv.
+plain cube pad + conv.  The stem pool (K3) is held bit for bit: max is
+exact, so equal bits wherever the plain version is not NaN, and NaN where
+it is.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cp360_tpu_torch.ops import cube_conv, equi_gather
+from cp360_tpu_torch.ops import cube_conv, cube_pool, equi_gather
 
 
 @pytest.fixture
@@ -147,3 +149,56 @@ def test_cuda_equi_to_cube_matches_plain(cuda, dtype):
     assert equi_gather.launches == before + 1
     ref = equi_gather.equi_to_cube_plain(t.cpu(), 32)
     assert (got.cpu() - ref).abs().max().item() <= 1e-6
+
+
+def _pool_input(seed, n, h, c, dtype, device):
+    """Distinct values per face and position, with +-inf and NaN planted
+    on face edges and corners (they feed the neighbours' halos)."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((n, 6, h, h, c)).astype(np.float32)
+    x += np.arange(6, dtype=np.float32).reshape(1, 6, 1, 1, 1)
+    x[0, 0, 0, 0, 0] = np.nan
+    x[0, 5, 0, h - 1, 1] = np.inf
+    x[-1, 3, h - 1, 0, 2] = -np.inf
+    x[-1, 2, 0, 5, 3] = np.nan
+    x[0, 1, h - 1, 3, c - 1] = np.nan
+    x[-1, 4, :, 0, c // 2] = -np.inf
+    return torch.from_numpy(x).to(device, dtype)
+
+
+def _assert_bit_equal(got, ref):
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(ints)[~nan], ref.view(ints)[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,h,c", [
+    (torch.bfloat16, 2, 112, 64), (torch.bfloat16, 1, 16, 8),
+    (torch.float32, 2, 112, 64), (torch.float32, 1, 8, 4),
+])
+def test_cuda_cube_pool_matches_plain_bit_for_bit(cuda, dtype, n, h, c):
+    x = _pool_input(12, n, h, c, dtype, cuda)
+    before = cube_pool.launches
+    got = cube_pool.cube_pad_max_pool_3x3s2(x)
+    assert cube_pool.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (n, 6, h // 2, h // 2, c)
+    ref = cube_pool.cube_pad_max_pool_3x3s2_plain(x)
+    torch.cuda.synchronize()
+    _assert_bit_equal(got, ref)
+    # and the CPU's plain version, the JAX package's twin
+    _assert_bit_equal(got.cpu(), cube_pool.cube_pad_max_pool_3x3s2_plain(x.cpu()))
+
+
+@pytest.mark.cuda
+def test_cuda_cube_pool_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(1, 6, 8, 8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        cube_pool.cube_pad_max_pool_3x3s2(x.half())
+    with pytest.raises(ValueError):  # C * 4 bytes not a multiple of 16
+        cube_pool.cube_pad_max_pool_3x3s2(x[..., :6].contiguous())
+    with pytest.raises(ValueError):
+        cube_pool.cube_pad_max_pool_3x3s2(x.transpose(2, 3))
+    with pytest.raises(ValueError):  # odd face
+        cube_pool.cube_pad_max_pool_3x3s2(torch.zeros(1, 6, 7, 7, 8, device=cuda))
