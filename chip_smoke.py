@@ -6,22 +6,26 @@
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. build: compile every kernel of ``cp360_tpu_torch/csrc/`` (one nvcc per
-   source, all started together) and print each kernel's register and
-   shared-memory use.
+   source, all started together), print each kernel's register and
+   shared-memory use, and fail if ptxas spilled registers anywhere.
 2. kernels: hold each hand kernel against its plain PyTorch version on the
    card at the shapes the serving and training paths give it, and time
    kernel, plain version and (where one exists) the library call.
    - K1 ``cube_conv3x3``: bf16 [8,6,7,7,2000]->4000, [8,6,7,7,4000]->4000
-     (a full bucket of 8 windows) and [1,6,7,7,4000]->4000 (one window)
-     (kernel on bf16 inputs vs the plain version in f32 on the same
-     bf16-rounded inputs: max|err| <= 1e-2 max|ref|; both accumulate in f32,
-     so they differ by summation order and the kernel's one bf16 rounding,
-     at most one bf16 ulp ~0.4%), and f32 [2,6,7,7,2000]->4000
-     (max|err| <= 1e-4 max|ref| + 1e-4).
+     (a full bucket of 8 windows), [1,6,7,7,4000]->4000 and
+     [1,6,7,7,2000]->4000 (one window) (kernel on bf16 inputs vs the plain
+     version in f32 on the same bf16-rounded inputs: max|err| <= 1e-2
+     max|ref|; both accumulate in f32, so they differ by summation order and
+     the kernel's one bf16 rounding, at most one bf16 ulp ~0.4%), and f32
+     [2,6,7,7,2000]->4000 (max|err| <= 1e-4 max|ref| + 1e-4).
    - K1 dx ``cube_conv3x3_dx`` (the input gradient): bf16 dy [8,6,7,7,4000]
      -> dx at Cin 4000 and 2000, bf16 [1,...,4000] -> 4000 and f32
      [2,...,4000] -> 2000, against autograd of the plain cube pad + conv in
      f32 on the same inputs, at the forward's tolerances.
+   - For each K1 and dx shape also: TFLOP/s, the depth splits the wrapper
+     chose, and a second launch that must equal the first bit for bit.
+     Then the bf16 forward and dx at every split count, at 8 windows and at
+     one (the evidence for ``cube_conv.depth_splits``).
    - K2 ``equi_to_cube``: u8 [8,960,1920,3] -> [8,6,224,224,3] f32,
      max|err| <= 1e-6.
    - K3 ``cube_pool3x3s2`` (the stem's cube-padded 3x3/s2 max pool): bf16
@@ -152,12 +156,17 @@ def phase_build() -> None:
 
     t0 = time.monotonic()
     logs = _build.build()
+    spills = []
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"[ptxas {name}] {line.strip()}")
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills.append(f"{name}: {line.strip()}")
     print(f"build: {sorted(logs) or 'cached'} in {time.monotonic() - t0:.1f} s",
           flush=True)
+    if spills:
+        fail(f"ptxas spilled registers: {spills}")
 
 
 # ---- phase 2: kernels vs their plain versions --------------------------------
@@ -173,16 +182,19 @@ def check_cube_conv(n: int, cin: int, cout: int, dtype: torch.dtype, gen) -> dic
     b = (torch.randn(cout, generator=gen, device=dev) * 0.1).to(dtype)
     xf, wf, bf = x.float(), w.float(), b.float()
 
-    got = cube_conv.cube_conv3x3(x, w, b).float()
+    got = cube_conv.cube_conv3x3(x, w, b)
+    again = cube_conv.cube_conv3x3(x, w, b)
     ref = cube_conv.cube_conv3x3_plain(xf, wf, bf)
     torch.cuda.synchronize()
+    repeat_equal = torch.equal(got, again)  # bit for bit, NaN-free outputs
+    got = got.float()
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     if dtype == torch.bfloat16:
         tol = 1e-2 * scale
     else:
         tol = 1e-4 * scale + 1e-4
-    ok = bool(err <= tol) and bool(torch.isfinite(got).all())
+    ok = bool(err <= tol) and bool(torch.isfinite(got).all()) and repeat_equal
 
     ms = cuda_ms(lambda: cube_conv.cube_conv3x3(x, w, b))
     plain_ms = cuda_ms(lambda: cube_conv.cube_conv3x3_plain(xf, wf, bf), iters=5)
@@ -197,10 +209,39 @@ def check_cube_conv(n: int, cin: int, cout: int, dtype: torch.dtype, gen) -> dic
     bms, by = bound_ms(n_bytes, n_ops, peak)
     res = {"shape": f"{str(dtype).split('.')[-1]} x[{n},6,7,7,{cin}] -> {cout}",
            "max_abs_err": err, "max_abs_ref": scale, "tol": tol, "passed": ok,
+           "repeat_bit_equal": repeat_equal, "splits": depth_splits(dtype, cout, cin),
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bms, "bound_by": by,
            "tflops": n_ops / (ms * 1e-3) / 1e12}
     print(f"K1 cube_conv3x3 {json.dumps(res)}", flush=True)
+    return res
+
+
+def depth_splits(dtype: torch.dtype, n: int, k: int) -> int:
+    """The depth splits the wrapper picks for a conv on 7x7 cubes (1 in f32)."""
+    from cp360_tpu_torch.ops import cube_conv
+
+    if dtype != torch.bfloat16:
+        return 1
+    return cube_conv.depth_splits(294, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def split_sweep(n: int, cin: int, cout: int, gen) -> dict:
+    """ms of the bf16 forward and dx at every depth split count, outside
+    the counted runs: the evidence for ``cube_conv.depth_splits``."""
+    from cp360_tpu_torch.ops import cube_conv
+
+    x = torch.randn(n, 6, 7, 7, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    b = torch.zeros(cout, device="cuda", dtype=torch.bfloat16)
+    dy = torch.randn(n, 6, 7, 7, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    res = {"shape": f"bf16 [{n},6,7,7,{cin}] -> {cout}",
+           "rule": {"fwd": depth_splits(torch.bfloat16, cout, cin),
+                    "dx": depth_splits(torch.bfloat16, cin, cout)}}
+    for s in range(1, cube_conv.MAX_SPLITS + 1):
+        res[f"fwd_ms_{s}"] = cuda_ms(lambda: cube_conv._forward(x, w, b, splits=s), iters=10)
+        res[f"dx_ms_{s}"] = cuda_ms(lambda: cube_conv._dx(dy, w, splits=s), iters=10)
+    print(f"K1 split sweep {json.dumps(res)}", flush=True)
     return res
 
 
@@ -229,13 +270,16 @@ def check_cube_conv_dx(n: int, cin: int, cout: int, dtype: torch.dtype, gen) -> 
          * (2.0 / (9 * cin)) ** 0.5).to(dtype)
     dyf, wf = dy.float(), w.float()
 
-    got = cube_conv.cube_conv3x3_dx(dy, w).float()
+    got = cube_conv.cube_conv3x3_dx(dy, w)
+    again = cube_conv.cube_conv3x3_dx(dy, w)
     ref = cube_conv.cube_conv3x3_dx_plain(dyf, wf)
     torch.cuda.synchronize()
+    repeat_equal = torch.equal(got, again)
+    got = got.float()
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     tol = 1e-2 * scale if dtype == torch.bfloat16 else 1e-4 * scale + 1e-4
-    ok = bool(err <= tol) and bool(torch.isfinite(got).all())
+    ok = bool(err <= tol) and bool(torch.isfinite(got).all()) and repeat_equal
 
     ms = cuda_ms(lambda: cube_conv.cube_conv3x3_dx(dy, w))
     plain_ms = cuda_ms(lambda: cube_conv.cube_conv3x3_dx_plain(dyf, wf), iters=5)
@@ -243,11 +287,12 @@ def check_cube_conv_dx(n: int, cin: int, cout: int, dtype: torch.dtype, gen) -> 
     m = n * 6 * 49
     size = dy.element_size()
     n_bytes = (dy.numel() + w.numel() + m * cin) * size
-    n_ops = 2.0 * m * 9 * cin * cout  # the gradient's products, not the 23 slots'
+    n_ops = 2.0 * m * 9 * cin * cout
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     bms, by = bound_ms(n_bytes, n_ops, peak)
     res = {"shape": f"{str(dtype).split('.')[-1]} dy[{n},6,7,7,{cout}] -> dx Cin {cin}",
            "max_abs_err": err, "max_abs_ref": scale, "tol": tol, "passed": ok,
+           "repeat_bit_equal": repeat_equal, "splits": depth_splits(dtype, cin, cout),
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bms, "bound_by": by,
            "tflops": n_ops / (ms * 1e-3) / 1e12}
@@ -337,11 +382,14 @@ def phase_kernels() -> dict:
     k1 = [check_cube_conv(8, 2000, 4000, torch.bfloat16, gen),
           check_cube_conv(8, 4000, 4000, torch.bfloat16, gen),
           check_cube_conv(1, 4000, 4000, torch.bfloat16, gen),
+          check_cube_conv(1, 2000, 4000, torch.bfloat16, gen),
           check_cube_conv(2, 2000, 4000, torch.float32, gen)]
     k1dx = [check_cube_conv_dx(8, 4000, 4000, torch.bfloat16, gen),
             check_cube_conv_dx(8, 2000, 4000, torch.bfloat16, gen),
             check_cube_conv_dx(1, 4000, 4000, torch.bfloat16, gen),
             check_cube_conv_dx(2, 2000, 4000, torch.float32, gen)]
+    for n in (8, 1):
+        split_sweep(n, 4000, 4000, gen)
     k2 = check_equi_to_cube(8, gen)
     k3 = [check_cube_pool(8, torch.bfloat16, gen),
           check_cube_pool(16, torch.bfloat16, gen),

@@ -7,13 +7,21 @@ The op the ConvLSTM runs 3 times per step on [N, 6, 7, 7, C] CAM cubes
 - :func:`cube_conv3x3`, the forward (``pallas_kernels.py::cube_conv3x3``):
   on a CUDA tensor it launches the hand-written Hopper kernel in
   ``csrc/cube_conv3x3.cu`` (an implicit GEMM whose A tiles gather the cube
-  padding through :func:`source_table`; its header states the bound); on a
-  CPU tensor it runs :func:`cube_conv3x3_plain`, the counterpart of
+  padding through :func:`source_table`; bf16 runs warp-specialised
+  ``wgmma`` with TMA weights; its header states the bound); on a CPU tensor
+  it runs :func:`cube_conv3x3_plain`, the counterpart of
   ``cube_conv3x3_reference`` (cube pad, then a VALID conv);
 - :func:`cube_conv3x3_dx`, the input gradient (``pallas_kernels.py::_cc_bwd``):
-  the same kernel source, with the inverse source map split into injective
-  slots (:func:`dx_slot_table`) and the weights read transposed; on a CPU
-  tensor, :func:`cube_conv3x3_dx_plain` (autograd of the plain version).
+  the same kernel over the 9 taps, with the weights read transposed; per
+  tap, the <= 3 dy rows that feed one input pixel (:func:`dx_tap_table`)
+  are summed once in f32 before the product (:func:`dx_gather_tables`); on
+  a CPU tensor, :func:`cube_conv3x3_dx_plain` (autograd of the plain
+  version).
+
+In bf16 the kernel may split its depth into ranges (:func:`depth_splits`,
+one count per conv shape, whatever the batch) and sum the f32 partials in a
+second pass of the same call, in a fixed order: the result is
+bit-identical from run to run and does not depend on the batch.
 
 :func:`cube_conv3x3_train` is the differentiable form
 (``pallas_kernels.py::cube_conv3x3_train``): forward and input gradient are
@@ -51,32 +59,121 @@ def source_table(h: int, w: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=8)
-def dx_slot_table(h: int, w: int):
-    """The input gradient's gather tables: (tab int32 [S, 6hw], slot_tap
-    int32 [S]).
+def dx_tap_table(h: int, w: int) -> np.ndarray:
+    """The input gradient's gather table: int32 [9, 6hw, 3].
 
     Tap k's source map (row k of :func:`source_table`) is not injective: an
     input pixel q on a face edge is read by up to 3 output positions p of
-    the same tap.  Its inverse is split into layers: layer j of tap k holds,
-    for each q, the j-th p (in ascending order) with src_k(p) = q, or -1.
-    Then dx[q] = sum_s dy[tab[s, q]] W[slot_tap[s]]^T over the S slots (23
-    at 7x7 faces: multiplicity 1 for the centre tap, 2 for taps 3 and 5, 3
-    for the other six).
+    the same tap.  Entry [k, q, j] is the j-th such p (ascending), or -1.
+    Then dx[q] = sum_k (sum_j dy[tab[k, q, j]]) W[k]^T: per tap, the <= 3
+    rows are summed first, so the products are the forward's 9 taps.
     """
     src = source_table(h, w)
     rows = src.shape[1]
-    tabs, taps = [], []
+    tab = np.full((9, rows, 3), -1, np.int32)
     for k in range(9):
         order = np.argsort(src[k], kind="stable")  # outputs p grouped by q
         q_sorted = src[k][order]
         rank = np.arange(rows) - np.searchsorted(q_sorted, q_sorted)
-        for j in range(int(rank.max()) + 1):
-            t = np.full(rows, -1, np.int32)
-            layer = rank == j
-            t[q_sorted[layer]] = order[layer]
-            tabs.append(t)
-            taps.append(k)
-    return np.stack(tabs), np.asarray(taps, np.int32)
+        if rank.max() >= 3:
+            raise AssertionError(f"tap {k} reads one pixel {rank.max() + 1} times")
+        tab[k, q_sorted, rank] = order
+    return tab
+
+
+@lru_cache(maxsize=8)
+def dx_gather_tables(h: int, w: int):
+    """What the dx kernel reads, from :func:`dx_tap_table`: (tab int32
+    [9, 6hw], rows int32 [E, 3]).
+
+    Entry tab[k, q] is -1 where no output reads pixel q through tap k, p
+    where exactly one output p does, and -2 - e where two or three do:
+    rows[e] lists them (-1 after the last; e counts such pairs in (k, q)
+    order, E = 188 at 7x7 faces).  The kernel first sums each cube's rows[e]
+    of dy into one row (in f32, rounded once to dy's dtype), so every A row
+    then has one source.
+    """
+    tab3 = dx_tap_table(h, w)
+    count = (tab3 >= 0).sum(axis=2)
+    tab = np.where(count == 1, tab3[:, :, 0], -1).astype(np.int32)
+    multi = count >= 2
+    tab[multi] = -2 - np.arange(int(multi.sum()), dtype=np.int32)
+    return tab, tab3[multi].astype(np.int32)
+
+
+# The bf16 kernel's tiles (csrc/cube_conv3x3.cu): BM rows x BN columns, BK
+# channels of depth a step, 9 * ceil(K / BK) steps in all.
+BM, BN, BK = 128, 256, 64
+# The split rule's cost model, from the card's peaks (H100: 989 TFLOP/s
+# bf16 on 132 SMs, 3.35 TB/s): one 128x256x64 step of one block takes
+# about 0.7 us (0.56 us at the peak); the second pass moves 8 bytes per
+# partial element (written, read) and 2 per output at about 2.5 TB/s, and
+# costs a launch of about 4 us.
+_STEP_US = 0.7
+_REDUCE_BYTES_PER_US = 2.5e6
+_REDUCE_LAUNCH_US = 4.0
+MAX_SPLITS = 9
+
+
+# Batch sizes, in cubes, at which the rule weighs each split count: one
+# window (training at batch 1, a lone request), a serving bucket and a
+# training batch of 8, and the evaluation's 64 windows per batch.
+REFERENCE_CUBES = (1, 8, 64)
+
+
+def _split_us(m: int, n: int, k: int, sms: int, s: int) -> float:
+    """Estimated time of one bf16 launch at M = m with s depth splits.  The
+    grid is persistent (one block per SM), so a block runs ceil(units /
+    sms) units of ceil(steps / s) steps each."""
+    tiles = -(-m // BM) * -(-n // BN)
+    steps = 9 * -(-k // BK)
+    us = -(-tiles * s // sms) * -(-steps // s) * _STEP_US
+    if s > 1:
+        us += _REDUCE_LAUNCH_US + m * n * (8 * s + 2) / _REDUCE_BYTES_PER_US
+    return us
+
+
+@lru_cache(maxsize=64)
+def depth_splits(p: int, n: int, k: int, sms: int) -> int:
+    """How many ranges the bf16 kernel splits its depth into, for cubes of
+    p = 6hw positions, N = n output channels and K = k channels a tap, on a
+    card with ``sms`` SMs.
+
+    The count does not depend on the batch: a split changes the order in
+    which each output's f32 sum is taken, so one count per conv shape keeps
+    every output independent of what else is in the batch (a served window
+    equals the same window computed alone, bit for bit).  It is the count in
+    1..9 whose estimated time, over the best count's at each of the
+    reference batches (:data:`REFERENCE_CUBES`), sums lowest: more splits
+    fill the card at small batches and cost the f32 partials' second pass
+    at large ones.
+    """
+    best, best_cost = 1, None
+    for s in range(1, MAX_SPLITS + 1):
+        cost = 0.0
+        for cubes in REFERENCE_CUBES:
+            m = cubes * p
+            t = [_split_us(m, n, k, sms, c) for c in range(1, MAX_SPLITS + 1)]
+            cost += t[s - 1] / min(t)
+        if best_cost is None or cost < best_cost - 1e-9:
+            best, best_cost = s, cost
+    return best
+
+
+def work_units(m: int, n: int, k: int, splits: int):
+    """The bf16 kernel's work units in launch order, as the kernel derives
+    them (``unit_of``): (m0, n0, first step, end step) for u = 0, 1, ...;
+    M tiles fastest, then N tiles, then depth ranges.  A step is
+    tap * ceil(k / BK) + channel chunk."""
+    tiles_m, tiles_n = -(-m // BM), -(-n // BN)
+    steps = 9 * -(-k // BK)
+    tiles = tiles_m * tiles_n
+    units = []
+    for u in range(tiles * splits):
+        tile, split = u % tiles, u // tiles
+        units.append(((tile % tiles_m) * BM, (tile // tiles_m) * BN,
+                      split * steps // splits, (split + 1) * steps // splits))
+    return units
 
 
 @lru_cache(maxsize=8)
@@ -86,8 +183,13 @@ def _table_on(h: int, w: int, device: torch.device) -> torch.Tensor:
 
 @lru_cache(maxsize=8)
 def _dx_tables_on(h: int, w: int, device: torch.device):
-    tab, slot_tap = dx_slot_table(h, w)
-    return torch.from_numpy(tab).to(device), torch.from_numpy(slot_tap).to(device)
+    tab, rows = dx_gather_tables(h, w)
+    return torch.from_numpy(tab).to(device), torch.from_numpy(rows).to(device)
+
+
+@lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @lru_cache(maxsize=8)
@@ -104,13 +206,28 @@ def _selection_on(h: int, w: int, device: torch.device, dtype: torch.dtype) -> t
 def _lib():
     lib = _build.load("cube_conv3x3")
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.cp360_cube_conv3x3.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint, cint,
-                                       cint, ptr]
-    lib.cp360_cube_conv3x3.restype = cint
-    lib.cp360_cube_conv3x3_dx.argtypes = [ptr, ptr, ptr, ptr, ptr, cint, cint, cint, cint,
-                                          cint, cint, ptr]
-    lib.cp360_cube_conv3x3_dx.restype = cint
+    for fn in (lib.cp360_cube_conv3x3, lib.cp360_cube_conv3x3_dx):
+        n_ptrs, n_ints = (6, 7) if fn is lib.cp360_cube_conv3x3 else (7, 8)
+        fn.argtypes = [ptr] * n_ptrs + [cint] * n_ints + [ptr]
+        fn.restype = cint
     return lib
+
+
+def _splits_and_workspace(is_bf16: bool, m: int, p: int, n: int, k: int,
+                          device: torch.device, splits: Optional[int]):
+    """(depth splits, f32 workspace pointer) for one launch: the rule's
+    count unless ``splits`` is given; the f32 kernel never splits."""
+    if not is_bf16:
+        return 1, None
+    if m * k >= 2**31:  # the bf16 kernel's row offsets are 32-bit
+        raise ValueError(f"the bf16 kernel takes fewer than 2**31 input elements, got {m * k}")
+    if splits is None:
+        splits = depth_splits(p, n, k, _sm_count(device))
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits must be in 1..{MAX_SPLITS}, got {splits}")
+    if splits == 1:
+        return 1, None
+    return splits, torch.empty((splits, m, n), dtype=torch.float32, device=device)
 
 
 def cube_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -173,12 +290,18 @@ def cube_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     tensor launches the kernel (contiguous operands; bf16 needs Cin and
     Cout divisible by 8); a CPU tensor runs the plain version.
     """
-    global launches
     _check(x, w, b)
     if x.device.type == "cpu":
         return cube_conv3x3_plain(x, w, b)
     if not x.is_cuda:
         raise ValueError(f"cube_conv3x3 runs on CUDA or CPU tensors, got {x.device}")
+    return _forward(x, w, b)
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             splits: Optional[int] = None) -> torch.Tensor:
+    """The forward kernel's launch (``splits`` overrides :func:`depth_splits`)."""
+    global launches
     n, _, h, ww, cin = x.shape
     cout = w.shape[3]
     is_bf16 = _check_kernel_operands("cube_conv3x3", (x, w, b), cin, cout)
@@ -187,12 +310,14 @@ def cube_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
         raise ValueError("the bf16 kernel needs 16-byte aligned x, w and out")
     if n == 0:
         return out
+    m = n * 6 * h * ww
+    splits, ws = _splits_and_workspace(is_bf16, m, 6 * h * ww, cout, cin, x.device, splits)
     tab = _table_on(h, ww, x.device)
     with torch.cuda.device(x.device):
         err = _lib().cp360_cube_conv3x3(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), tab.data_ptr(), out.data_ptr(),
-            n * 6 * h * ww, 6 * h * ww, cin, cout, int(is_bf16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            None if ws is None else ws.data_ptr(), m, 6 * h * ww, cin, cout, splits,
+            _sm_count(x.device), int(is_bf16), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cube_conv3x3 kernel launch failed: CUDA error {err}")
     launches += 1
@@ -210,7 +335,6 @@ def cube_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     tensor launches the dx kernel (contiguous operands; bf16 needs Cin and
     Cout divisible by 8); a CPU tensor runs :func:`cube_conv3x3_dx_plain`.
     """
-    global dx_launches
     if dy.ndim != 5 or dy.shape[1] != 6 or dy.shape[2] != dy.shape[3]:
         raise ValueError(f"dy must be [N, 6, h, h, Cout], got {tuple(dy.shape)}")
     if w.ndim != 4 or w.shape[:2] != (3, 3) or w.shape[3] != dy.shape[4]:
@@ -221,6 +345,12 @@ def cube_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return cube_conv3x3_dx_plain(dy, w)
     if not dy.is_cuda:
         raise ValueError(f"cube_conv3x3_dx runs on CUDA or CPU tensors, got {dy.device}")
+    return _dx(dy, w)
+
+
+def _dx(dy: torch.Tensor, w: torch.Tensor, splits: Optional[int] = None) -> torch.Tensor:
+    """The dx kernel's launch (``splits`` overrides :func:`depth_splits`)."""
+    global dx_launches
     n, _, h, ww, cout = dy.shape
     cin = w.shape[2]
     is_bf16 = _check_kernel_operands("cube_conv3x3_dx", (dy, w), cin, cout)
@@ -229,12 +359,17 @@ def cube_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("the bf16 kernel needs 16-byte aligned dy, w and dx")
     if n == 0:
         return dx
-    tab, slot_tap = _dx_tables_on(h, ww, dy.device)
+    m = n * 6 * h * ww
+    splits, ws = _splits_and_workspace(is_bf16, m, 6 * h * ww, cin, cout, dy.device,
+                                       splits)
+    tab, rows = _dx_tables_on(h, ww, dy.device)
+    sums = torch.empty((n * rows.shape[0], cout), dtype=dy.dtype, device=dy.device)
     with torch.cuda.device(dy.device):
         err = _lib().cp360_cube_conv3x3_dx(
-            dy.data_ptr(), w.data_ptr(), tab.data_ptr(), slot_tap.data_ptr(),
-            dx.data_ptr(), n * 6 * h * ww, 6 * h * ww, tab.shape[0], cin, cout,
-            int(is_bf16), torch.cuda.current_stream(dy.device).cuda_stream)
+            dy.data_ptr(), w.data_ptr(), tab.data_ptr(), rows.data_ptr(), sums.data_ptr(),
+            dx.data_ptr(), None if ws is None else ws.data_ptr(), m, 6 * h * ww, rows.shape[0],
+            cin, cout, splits, _sm_count(dy.device), int(is_bf16),
+            torch.cuda.current_stream(dy.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cube_conv3x3_dx kernel launch failed: CUDA error {err}")
     dx_launches += 1

@@ -41,14 +41,30 @@ def _conv_inputs(seed, n, cin, cout):
     return x, w, b
 
 
+def _conv_inputs_h(seed, n, h, cin, cout):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, 6, h, h, cin).astype(np.float32)
+    w = (rng.randn(3, 3, cin, cout) * (2.0 / (9 * cin)) ** 0.5).astype(np.float32)
+    b = (rng.randn(cout) * 0.1).astype(np.float32)
+    return x, w, b
+
+
+# ragged M (n = 1, 3: 294 and 882 rows against 128-row tiles), Cout 4000
+# and 2000 (against 256-column tiles), Cin 24 -> Cout 40 (less than one
+# 64-deep step), Cin != Cout (a swapped transpose cannot hide) and h = 4
+CONV_CASES = [
+    (torch.bfloat16, 1, 7, 2000, 4000), (torch.bfloat16, 3, 7, 4000, 2000),
+    (torch.bfloat16, 2, 7, 136, 264), (torch.bfloat16, 1, 7, 24, 40),
+    (torch.bfloat16, 3, 4, 200, 72), (torch.float32, 2, 7, 64, 96),
+    (torch.float32, 1, 7, 20, 12), (torch.float32, 1, 4, 24, 16),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,n,cin,cout", [
-    (torch.bfloat16, 2, 2000, 4000), (torch.bfloat16, 1, 24, 40),
-    (torch.float32, 2, 64, 96), (torch.float32, 1, 20, 12),
-])
-def test_cuda_cube_conv_matches_plain(cuda, dtype, n, cin, cout):
+@pytest.mark.parametrize("dtype,n,h,cin,cout", CONV_CASES)
+def test_cuda_cube_conv_matches_plain(cuda, dtype, n, h, cin, cout):
     x, w, b = (torch.from_numpy(a).to(cuda, dtype)
-               for a in _conv_inputs(4, n, cin, cout))
+               for a in _conv_inputs_h(4, n, h, cin, cout))
     before = cube_conv.launches
     got = cube_conv.cube_conv3x3(x, w, b)
     assert cube_conv.launches == before + 1 and got.dtype == dtype
@@ -61,6 +77,41 @@ def test_cuda_cube_conv_matches_plain(cuda, dtype, n, cin, cout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 9])
+@pytest.mark.parametrize("n,cin,cout", [(1, 2000, 4000), (3, 264, 136)])
+def test_cuda_cube_conv_bf16_repeats_bit_for_bit(cuda, splits, n, cin, cout):
+    """Two launches give the same bits, with and without the depth split;
+    every split count agrees with the plain version."""
+    x, w, b = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _conv_inputs_h(13, n, 7, cin, cout))
+    first = cube_conv._forward(x, w, b, splits=splits)
+    second = cube_conv._forward(x, w, b, splits=splits)
+    dx1 = cube_conv._dx(first, w, splits=splits)
+    dx2 = cube_conv._dx(first, w, splits=splits)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    assert torch.equal(dx1.view(torch.int16), dx2.view(torch.int16))
+    ref = cube_conv.cube_conv3x3_plain(x.float(), w.float(), b.float())
+    assert (first.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(2000, 4000), (4000, 2000)])
+def test_cuda_cube_conv_bf16_does_not_depend_on_the_batch(cuda, cin, cout):
+    """Each cube's output, forward and dx, is the same bits in a batch of 3
+    as alone: the depth split is one count per conv shape."""
+    x, w, b = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _conv_inputs_h(14, 3, 7, cin, cout))
+    out = cube_conv.cube_conv3x3(x, w, b)
+    dx = cube_conv.cube_conv3x3_dx(out, w)
+    for i in range(3):
+        alone = cube_conv.cube_conv3x3(x[i:i + 1].contiguous(), w, b)
+        assert torch.equal(alone.view(torch.int16), out[i:i + 1].view(torch.int16))
+        dx_alone = cube_conv.cube_conv3x3_dx(out[i:i + 1].contiguous(), w)
+        assert torch.equal(dx_alone.view(torch.int16), dx[i:i + 1].view(torch.int16))
+
+
+@pytest.mark.cuda
 def test_cuda_cube_conv_rejects_what_the_kernel_does_not_take(cuda):
     x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(6, 1, 12, 8))
     with pytest.raises(ValueError):  # bf16 needs Cin % 8 == 0
@@ -69,6 +120,12 @@ def test_cuda_cube_conv_rejects_what_the_kernel_does_not_take(cuda):
         cube_conv.cube_conv3x3(x.half(), w.half(), b.half())
     with pytest.raises(ValueError):
         cube_conv.cube_conv3x3(x.transpose(2, 3), w, b)
+    x16 = torch.randn(1, 6, 7, 7, 16, device=cuda, dtype=torch.bfloat16)
+    w16 = torch.randn(3, 3, 16, 8, device=cuda, dtype=torch.bfloat16)
+    b16 = torch.zeros(8, device=cuda, dtype=torch.bfloat16)
+    buf = torch.empty(x16.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # 16-byte alignment of the bf16 operands
+        cube_conv.cube_conv3x3(buf[1:].view(x16.shape), w16, b16)
 
 
 def _tol(ref, dtype):
@@ -77,18 +134,15 @@ def _tol(ref, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,n,cin,cout", [
-    (torch.bfloat16, 2, 2000, 4000), (torch.bfloat16, 1, 4000, 4000),
-    (torch.bfloat16, 1, 24, 40), (torch.float32, 2, 64, 96), (torch.float32, 1, 20, 12),
-])
-def test_cuda_cube_conv_dx_matches_plain(cuda, dtype, n, cin, cout):
-    _, w, _ = _conv_inputs(7, n, cin, cout)
-    dy = np.random.RandomState(8).randn(n, 6, 7, 7, cout).astype(np.float32)
+@pytest.mark.parametrize("dtype,n,h,cin,cout", CONV_CASES + [(torch.bfloat16, 1, 7, 4000, 4000)])
+def test_cuda_cube_conv_dx_matches_plain(cuda, dtype, n, h, cin, cout):
+    _, w, _ = _conv_inputs_h(7, n, h, cin, cout)
+    dy = np.random.RandomState(8).randn(n, 6, h, h, cout).astype(np.float32)
     tdy, tw = (torch.from_numpy(a).to(cuda, dtype) for a in (dy, w))
     before = cube_conv.dx_launches
     got = cube_conv.cube_conv3x3_dx(tdy, tw)
     assert cube_conv.dx_launches == before + 1 and got.dtype == dtype
-    assert tuple(got.shape) == (n, 6, 7, 7, cin)
+    assert tuple(got.shape) == (n, 6, h, h, cin)
     ref = cube_conv.cube_conv3x3_dx_plain(tdy.float(), tw.float())
     torch.cuda.synchronize()
     err = (got.float() - ref).abs().max().item()

@@ -86,3 +86,33 @@ def test_plain_paths_count_no_launches():
     cube_conv.cube_conv3x3(x, w, b)
     equi_gather.equi_to_cube(torch.zeros(1, 16, 32, 3, dtype=torch.uint8), 8)
     assert (cube_conv.launches, equi_gather.launches) == before
+
+
+@pytest.mark.parametrize("m,n,k", [(294, 4000, 4000), (2352, 4000, 4000), (2352, 2000, 4000),
+                                   (294, 4000, 2000), (294, 40, 24), (96, 72, 200)])
+def test_depth_split_units_cover_the_work_once(m, n, k):
+    """For every split count, the bf16 kernel's work units cover each
+    (step, M tile, N tile) exactly once, where a step is one tap's
+    64-channel chunk: 9 taps x ceil(k / 64) chunks.  M = 294 and 2352 are
+    one and 8 windows; 96 rows (h = 4) and Cin 24 are ragged."""
+    steps = 9 * -(-k // cube_conv.BK)
+    for splits in range(1, cube_conv.MAX_SPLITS + 1):
+        seen = {}
+        for m0, n0, first, end in cube_conv.work_units(m, n, k, splits):
+            assert m0 < m and n0 < n and 0 <= first < end <= steps
+            for step in range(first, end):
+                seen[(step, m0, n0)] = seen.get((step, m0, n0), 0) + 1
+        tiles = -(-m // cube_conv.BM) * -(-n // cube_conv.BN)
+        assert len(seen) == steps * tiles and set(seen.values()) == {1}
+
+
+def test_depth_split_rule():
+    """One count per conv shape: the ConvLSTM's convs on 7x7 cubes split
+    (one window alone fills 48 of 132 SMs), a conv whose K fits one step
+    never pays for a second pass, and each count is one of the kernel's."""
+    assert cube_conv.depth_splits(294, 4000, 4000, 132) == 2
+    assert cube_conv.depth_splits(294, 4000, 2000, 132) == 2
+    assert cube_conv.depth_splits(294, 2000, 4000, 132) > 1
+    assert cube_conv.depth_splits(294, 40, 24, 132) == 1
+    for p, n, k in [(96, 72, 200), (294, 1000, 4000), (24, 8, 8)]:
+        assert 1 <= cube_conv.depth_splits(p, n, k, 132) <= cube_conv.MAX_SPLITS

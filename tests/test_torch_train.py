@@ -143,40 +143,97 @@ def test_window_normalize_equals_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6)
 
 
-# ---- the conv's gradient: slot tables, dx, dw, db ---------------------------------
+# ---- the conv's gradient: the dx tap table, dx, dw, db -----------------------------
 
 
 @pytest.mark.parametrize("h", [7, 4])
 def test_dx_slot_table_reproduces_scatter_matrix(h):
-    """Summing each slot's one-hot (per tap) gives the TPU kernel's scatter
-    matrix B2[q, k*rows + p] = [src_k(p) == q]."""
+    """The dx kernel's [9, P, 3] tap table, one-hot per entry, gives the TPU
+    kernel's scatter matrix B2[q, k*rows + p] = [src_k(p) == q]; each (k, q)
+    lists its p in ascending order, -1 after them."""
     rows = 6 * h * h
-    tab, slot_tap = cube_conv.dx_slot_table(h, h)
+    tab = cube_conv.dx_tap_table(h, h)
+    assert tab.dtype == np.int32 and tab.shape == (9, rows, 3)
     b2 = np.zeros((rows, 9 * rows), np.float32)
     q = np.arange(rows)
-    for s in range(tab.shape[0]):
-        ok = tab[s] >= 0
-        np.add.at(b2, (q[ok], slot_tap[s] * rows + tab[s][ok]), 1.0)
+    for k in range(9):
+        for j in range(3):
+            ok = tab[k, :, j] >= 0
+            np.add.at(b2, (q[ok], k * rows + tab[k, ok, j]), 1.0)
     np.testing.assert_array_equal(b2, pallas_kernels.build_scatter_matrix(h, h))
+    filled = tab >= 0
+    assert not (filled[:, :, 1:] & ~filled[:, :, :-1]).any()  # -1 only at the end
+    both = filled[:, :, 1:] & filled[:, :, :-1]
+    assert (tab[:, :, 1:] > tab[:, :, :-1])[both].all()
+    # per tap, the most outputs that read one pixel: 3 at the corner taps,
+    # 2 at the edge taps, 1 at the centre (23 of the 27 layers are used)
+    assert filled.sum(axis=1).astype(bool).sum(axis=1).tolist() == [3, 3, 3, 2, 1, 2, 3, 3, 3]
+
+
+@pytest.mark.parametrize("h", [7, 4])
+def test_dx_gather_tables_rebuild_the_tap_table(h):
+    """The kernel's [9, P] table and its pre-summed rows list exactly the
+    [9, P, 3] tap table's rows: single rows in place, pairs and triples as
+    rows of the pre-summed buffer, each listed once."""
+    tab3 = cube_conv.dx_tap_table(h, h)
+    tab, sources = cube_conv.dx_gather_tables(h, h)
+    assert tab.shape == (9, 6 * h * h) and sources.shape[1] == 3
+    count = (tab3 >= 0).sum(axis=2)
+    assert len(sources) == int((count >= 2).sum())
+    rebuilt = np.full_like(tab3, -1)
+    one, multi = tab >= 0, tab <= -2
+    rebuilt[one, 0] = tab[one]
+    rebuilt[multi] = sources[-2 - tab[multi]]
+    np.testing.assert_array_equal(rebuilt, tab3)
+    assert sorted((-2 - tab[multi]).tolist()) == list(range(len(sources)))
     if h == 7:
-        assert slot_tap.tolist() == [0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5, 5,
-                                     6, 6, 6, 7, 7, 7, 8, 8, 8]
+        assert len(sources) == 188
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
 
 
 def test_dx_slot_sum_equals_autograd_of_plain():
-    """What the dx kernel computes, dx[q] = sum_s dy[tab[s, q]] W[tap_s]^T,
-    equals autograd of the plain cube pad + conv (f64, to rounding)."""
+    """The bf16 dx kernel's arithmetic, emulated in numpy through its
+    tables: per tap, the <= 3 dy rows of each input pixel summed in f32 and
+    rounded once to bf16 (only pairs with 2 or 3 rows have a sum to round),
+    then the product with W[tap]^T summed over the taps in f32.  It equals
+    autograd of the plain cube pad + conv in f32 (on the same bf16 inputs)
+    within the card tests' bf16 tolerance, 1e-2 of max|ref|; with the
+    rounding left out it equals it to f64 rounding."""
     rng = np.random.RandomState(7)
-    dy = rng.randn(2, 6, 7, 7, 5)
-    w = rng.randn(3, 3, 4, 5)
-    tab, slot_tap = cube_conv.dx_slot_table(7, 7)
-    dy2, w9 = dy.reshape(2, 294, 5), w.reshape(9, 4, 5)
-    want = np.zeros((2, 294, 4))
-    for s in range(tab.shape[0]):
-        ok = tab[s] >= 0
-        want[:, ok] += dy2[:, tab[s][ok]] @ w9[slot_tap[s]].T
-    got = cube_conv.cube_conv3x3_dx(torch.from_numpy(dy), torch.from_numpy(w))
-    np.testing.assert_allclose(got.numpy().reshape(2, 294, 4), want, atol=1e-12)
+    dy = _bf16(rng.randn(2, 6, 7, 7, 24))
+    w = _bf16(rng.randn(3, 3, 16, 24) * 0.1)
+    tab, sources = cube_conv.dx_gather_tables(7, 7)
+    dy2, w9 = dy.reshape(2, 294, 24).astype(np.float64), w.reshape(9, 16, 24)
+
+    def emulate(round_rows):
+        # the pre-pass: each cube's multi-source rows, summed, rounded once
+        sums = np.zeros((2, len(sources), 24))
+        for j in range(3):
+            ok = sources[:, j] >= 0
+            sums[:, ok] += dy2[:, sources[ok, j]]
+        if round_rows:
+            sums = _bf16(sums.astype(np.float32))
+        # the GEMM: one source row per (tap, pixel), f32 (here f64) sums
+        out = np.zeros((2, 294, 16))
+        for k in range(9):
+            a = np.zeros((2, 294, 24))
+            one, multi = tab[k] >= 0, tab[k] <= -2
+            a[:, one] = dy2[:, tab[k, one]]
+            a[:, multi] = sums[:, -2 - tab[k, multi]]
+            out += a @ w9[k].T
+        return out
+
+    ref = cube_conv.cube_conv3x3_dx(torch.from_numpy(dy), torch.from_numpy(w)).numpy()
+    ref = ref.reshape(2, 294, 16)
+    np.testing.assert_allclose(emulate(False), ref, atol=1e-5)
+    err = np.abs(emulate(True) - ref).max()
+    assert err <= 1e-2 * np.abs(ref).max(), err
+    exact = cube_conv.cube_conv3x3_dx(torch.from_numpy(dy).double(),
+                                      torch.from_numpy(w).double()).numpy()
+    np.testing.assert_allclose(emulate(False), exact.reshape(2, 294, 16), atol=1e-12)
 
 
 def _conv_case(seed, n=2, cin=16, cout=8):
