@@ -26,8 +26,16 @@ Phases, in order; any failure exits non-zero before the result lines:
      chose, and a second launch that must equal the first bit for bit.
      Then the bf16 forward and dx at every split count, at 8 windows and at
      one (the evidence for ``cube_conv.depth_splits``).
-   - K2 ``equi_to_cube``: u8 [8,960,1920,3] -> [8,6,224,224,3] f32,
-     max|err| <= 1e-6.
+   - K2 ``equi_to_cube``: u8 [8,960,1920,3] (a serving bucket) and
+     [16,...] (an extraction batch) and f32 [2,...] -> [N,6,224,224,3] f32,
+     bit for bit against the plain version on the CPU; a repeat launch and
+     each frame of a batch of 3 launched alone give the same bits.  Beside
+     ``ms`` (CUDA events around back-to-back wrapper calls) it reports the
+     device time of one launch from a CUDA graph of 50, the wrapper's host
+     time per call, the bound from the distinct source bytes the taps read
+     (``equi_gather.source_bytes``) with the touched 32-byte sectors, and
+     ``F.grid_sample`` on the f32 NCHW frame as a yardstick of the gather
+     alone (another function, so library ms stays null).
    - K3 ``cube_pool3x3s2`` (the stem's cube-padded 3x3/s2 max pool): bf16
      [8,6,112,112,64] (a serving bucket), [16,6,112,112,64] (an extraction
      batch), f32 [2,6,112,112,64], and bf16 [8,...] with +-inf and NaN
@@ -300,29 +308,68 @@ def check_cube_conv_dx(n: int, cin: int, cout: int, dtype: torch.dtype, gen) -> 
     return res
 
 
-def check_equi_to_cube(n: int, gen) -> dict:
-    from cp360_tpu_torch.ops import equi_gather
+def check_equi_to_cube(n: int, dtype: torch.dtype, gen) -> dict:
+    import torch.nn.functional as F
 
-    dev = "cuda"
-    frames = torch.randint(0, 256, (n, 960, 1920, 3), generator=gen, device=dev,
+    from cp360_tpu_torch.bench.equi_gather import graph_ms
+    from cp360_tpu_torch.ops import equi_gather, resample
+
+    dev, h, w, fw = "cuda", 960, 1920, 224
+    frames = torch.randint(0, 256, (n, h, w, 3), generator=gen, device=dev,
                            dtype=torch.int64).to(torch.uint8)
-    got = equi_gather.equi_to_cube(frames, 224)
-    ref = equi_gather.equi_to_cube_plain(frames, 224)
+    if dtype == torch.float32:
+        frames = frames.float() / 255.0
+    got = equi_gather.equi_to_cube(frames, fw)
+    again = equi_gather.equi_to_cube(frames, fw)
+    three = equi_gather.equi_to_cube(frames[:3], fw)
+    alone = [equi_gather.equi_to_cube(frames[i:i + 1], fw) for i in range(three.shape[0])]
+    ref = equi_gather.equi_to_cube_plain(frames.cpu(), fw)
     torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    ok = bool(err <= 1e-6) and tuple(got.shape) == (n, 6, 224, 224, 3)
+    bits = torch.int32
+    bit_equal = torch.equal(got.cpu().view(bits), ref.view(bits))
+    repeat_equal = torch.equal(got.view(bits), again.view(bits))
+    batch_equal = all(torch.equal(a.view(bits), three[i:i + 1].view(bits))
+                      for i, a in enumerate(alone))
+    err = (got.cpu() - ref).abs().max().item()
+    ok = bit_equal and repeat_equal and batch_equal and tuple(got.shape) == (n, 6, fw, fw, 3)
 
-    ms = cuda_ms(lambda: equi_gather.equi_to_cube(frames, 224), iters=50)
-    plain_ms = cuda_ms(lambda: equi_gather.equi_to_cube_plain(frames, 224), iters=5)
-    n_out = n * 6 * 224 * 224 * 3
-    n_bytes = frames.numel() + 4 * n_out  # u8 frames in, f32 faces out
+    ms = cuda_ms(lambda: equi_gather.equi_to_cube(frames, fw), iters=50)
+    device_ms = float(np.median(graph_ms(lambda: equi_gather.equi_to_cube(frames, fw))))
+    torch.cuda.synchronize()
+    t = time.perf_counter()  # the wrapper's host time per call: enqueue only
+    for _ in range(50):
+        equi_gather.equi_to_cube(frames, fw)
+    host_us = (time.perf_counter() - t) / 50 * 1e6
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: equi_gather.equi_to_cube_plain(frames, fw), iters=5)
+    # yardstick of the gather alone, never called by the port: grid_sample
+    # on the f32 NCHW frame at the maps' points (another function: no u8,
+    # no /255, another arithmetic order), so library_ms stays null
+    xs, ys = resample.equi2cube_maps(fw, h, w, frames.device)
+    grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], -1)
+    grid = grid.reshape(1, 6 * fw, fw, 2).expand(n, -1, -1, -1).contiguous()
+    nchw = (frames.float() / 255.0 if dtype == torch.uint8 else frames).permute(0, 3, 1, 2)
+    nchw = nchw.contiguous()
+    yard_ms = cuda_ms(lambda: F.grid_sample(nchw, grid, padding_mode="border",
+                                            align_corners=True), iters=20)
+    n_out = n * 6 * fw * fw * 3
+    item = frames.element_size()
+    # each distinct tap byte once, both f32 maps once, the f32 faces once
+    n_bytes = (n * equi_gather.source_bytes(fw, h, w, 3, item) + 2 * 4 * xs.numel()
+               + 4 * n_out)
     # per output value: 4 taps /255, 4 weight products, 3 adds
     n_ops = 11.0 * n_out
     bms, by = bound_ms(n_bytes, n_ops, H100_F32_FLOPS)
-    res = {"shape": f"u8 [{n},960,1920,3] -> [{n},6,224,224,3] f32",
-           "max_abs_err": err, "tol": 1e-6, "passed": ok, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms,
-           "bound_by": by, "gbytes_per_s": n_bytes / (ms * 1e-3) / 1e9}
+    res = {"shape": f"{'u8' if dtype == torch.uint8 else 'f32'} [{n},{h},{w},3] -> "
+                    f"[{n},6,{fw},{fw},3] f32",
+           "max_abs_err": err, "tol": 0.0, "bit_equal_cpu_plain": bit_equal,
+           "repeat_bit_equal": repeat_equal, "batch_of_3_bit_equal": batch_equal,
+           "passed": ok, "ms": ms, "device_ms": device_ms, "host_us": host_us,
+           "plain_ms": plain_ms, "library_ms": None, "gather_yardstick_ms": yard_ms,
+           "bound_ms": bms, "bound_by": by, "bound_bytes": n_bytes,
+           "source_sectors": equi_gather.source_sectors(fw, h, w, 3, item),
+           "frame_sectors": h * w * 3 * item // 32,
+           "share_of_bound": bms / device_ms}
     print(f"K2 equi_to_cube {json.dumps(res)}", flush=True)
     return res
 
@@ -390,17 +437,20 @@ def phase_kernels() -> dict:
             check_cube_conv_dx(2, 2000, 4000, torch.float32, gen)]
     for n in (8, 1):
         split_sweep(n, 4000, 4000, gen)
-    k2 = check_equi_to_cube(8, gen)
+    k2 = [check_equi_to_cube(8, torch.uint8, gen),
+          check_equi_to_cube(16, torch.uint8, gen),
+          check_equi_to_cube(2, torch.float32, gen)]
     k3 = [check_cube_pool(8, torch.bfloat16, gen),
           check_cube_pool(16, torch.bfloat16, gen),
           check_cube_pool(2, torch.float32, gen),
           check_cube_pool(8, torch.bfloat16, gen, specials=True)]
-    bad = [r["shape"] for r in k1 + k1dx + [k2] + k3 if not r["passed"]]
+    bad = [r["shape"] for r in k1 + k1dx + k2 + k3 if not r["passed"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     # the JSON line reports the dominant main-path conv (2 of the 3 per
-    # step) and the stem pool at an extraction batch of 16
-    return {"cube_conv3x3": k1[1], "cube_conv3x3_dx": k1dx[0], "equi_to_cube": k2,
+    # step), equi->cube at a serving bucket of 8 and the stem pool at an
+    # extraction batch of 16
+    return {"cube_conv3x3": k1[1], "cube_conv3x3_dx": k1dx[0], "equi_to_cube": k2[0],
             "cube_pool3x3s2": k3[1]}
 
 
@@ -1166,6 +1216,7 @@ def main(argv=None) -> None:
                      "launches": sum(paths.values()) if paths else None,
                      "launches_by_path": paths,
                      "max_abs_err": k.get("max_abs_err"), "ms": k.get("ms"),
+                     "device_ms": k.get("device_ms"),
                      "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
                      "bound_by": k.get("bound_by"),
                      "library_ms": k.get("library_ms"), "passed": k.get("passed")})

@@ -10,7 +10,9 @@ PyTorch:
 Tolerances: bf16 kernel output against the f32 plain version on the same
 bf16-rounded inputs at 1e-2 of max|ref| (both accumulate in f32; they differ
 by summation order and the kernel's one bf16 rounding, at most one bf16 ulp
-~0.4%); f32 at 1e-4 of max|ref| + 1e-4; the equi->cube gather at 1e-6.  The
+~0.4%); f32 at 1e-4 of max|ref| + 1e-4; the equi->cube gather (K2) bit for
+bit against its plain version on the CPU (the kernel keeps the plain
+version's rounded operations in their order and its IEEE /255).  The
 input-gradient kernel (dx) is held the same way against autograd of the
 plain cube pad + conv.  The stem pool (K3) is held bit for bit: max is
 exact, so equal bits wherever the plain version is not NaN, and NaN where
@@ -191,18 +193,78 @@ def test_cuda_cube_conv_train_grads_match_plain(cuda, dtype):
         assert err <= _tol(ref, dtype), (err, _tol(ref, dtype))
 
 
+def _equi_frames(seed, n, h, dtype, device, offset=0, c=3):
+    """Seeded [n, h, 2h, c] frames (f32: u8 / 255 on the CPU), starting
+    ``offset`` elements into their allocation."""
+    frames = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 256, (n, h, 2 * h, c)).astype(np.uint8))
+    if dtype == torch.float32:
+        frames = frames.float() / 255.0
+    buf = torch.empty(frames.numel() + offset, dtype=dtype, device=device)
+    t = buf[offset:].view(frames.shape)
+    t.copy_(frames)
+    return t
+
+
+def _assert_same_f32_bits(got, ref):
+    assert torch.equal(got.cpu().view(torch.int32), ref.cpu().view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 def test_cuda_equi_to_cube_matches_plain(cuda, dtype):
-    rng = np.random.RandomState(5)
-    frames = rng.randint(0, 256, (2, 64, 128, 3)).astype(np.uint8)
-    t = torch.from_numpy(frames).to(cuda)
-    t = t if dtype == torch.uint8 else t.float() / 255.0
+    t = _equi_frames(5, 2, 64, dtype, cuda)
     before = equi_gather.launches
     got = equi_gather.equi_to_cube(t, 32)
     assert equi_gather.launches == before + 1
-    ref = equi_gather.equi_to_cube_plain(t.cpu(), 32)
-    assert (got.cpu() - ref).abs().max().item() <= 1e-6
+    _assert_same_f32_bits(got, equi_gather.equi_to_cube_plain(t.cpu(), 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_cuda_equi_to_cube_ragged_groups_and_unaligned_frames(cuda, dtype, offset):
+    """fw = 7 on 18x36 frames: a frame's 6 * 49 = 294 pixels fill neither a
+    block nor, for 4 pixels per thread, a whole last group; a frame's faces
+    start 3528 bytes after the last frame's (not on 16 bytes) and a u8 frame
+    is 1944 bytes; with ``offset`` the batch starts one element into its
+    allocation.  Also C = 1 and C = 4 (the kernel's any-C path)."""
+    for c in (3, 1, 4):
+        t = _equi_frames(15, 3, 18, dtype, cuda, offset, c)
+        _assert_same_f32_bits(equi_gather.equi_to_cube(t, 7),
+                              equi_gather.equi_to_cube_plain(t.cpu(), 7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_cuda_equi_to_cube_does_not_depend_on_the_batch(cuda, dtype):
+    """Each frame's faces in a batch of 3 are the bits of the frame alone,
+    and a second launch repeats them."""
+    t = _equi_frames(16, 3, 64, dtype, cuda)
+    batch = equi_gather.equi_to_cube(t, 32)
+    _assert_same_f32_bits(equi_gather.equi_to_cube(t, 32), batch)
+    for i in range(3):
+        _assert_same_f32_bits(equi_gather.equi_to_cube(t[i:i + 1].clone(), 32), batch[i:i + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_cuda_equi_to_cube_clamps_x0_at_the_last_column(cuda, dtype):
+    """On the back face's seam the maps reach x = W - 1, where x1 clamps
+    onto x0: a row's taps are one pixel, not two, and the pixel after it
+    is the next row's first.  The last column holds 255 and the first 0,
+    so a tap taken one pixel too far shows."""
+    from cp360_tpu_torch.ops import resample
+
+    h = 18
+    xs, _ = resample.equi2cube_maps(7, h, 2 * h, torch.device("cpu"))
+    assert bool((xs >= 2 * h - 1).any())
+    t = _equi_frames(17, 2, h, torch.uint8, cuda, offset=1)
+    t[:, :, -1] = 255
+    t[:, :, 0] = 0
+    t = t if dtype == torch.uint8 else t.float() / 255.0
+    _assert_same_f32_bits(equi_gather.equi_to_cube(t, 7),
+                          equi_gather.equi_to_cube_plain(t.cpu(), 7))
 
 
 def _pool_input(seed, n, h, c, dtype, device):
