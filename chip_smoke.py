@@ -24,6 +24,10 @@ Phases, in order; any failure exits non-zero before the result lines:
      f32 on the same inputs, at the forward's tolerances.
    - For each K1 and dx shape also: TFLOP/s, the depth splits the wrapper
      chose, and a second launch that must equal the first bit for bit.
+   - Channel counts the bf16 kernels take zero-padded (not multiples of 8):
+     K1 and dx at [8,6,7,7,1250]->1000 (a ConvLSTM with hidden_size 250)
+     and 126->252 (hidden_size 63), and ``cube_conv3x3_train``'s forward,
+     dx, dw and db at both, against the plain f32 version at 1e-2 max|ref|.
      Then the bf16 forward and dx at every split count, at 8 windows and at
      one (the evidence for ``cube_conv.depth_splits``).
    - K2 ``equi_to_cube``: u8 [8,960,1920,3] (a serving bucket) and
@@ -52,7 +56,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    counts against the batchers' batch counts), that each session's prediction equals offline
    ``window_infer`` on the session's cubes, and that one frame and one
    window recomputed in f32 on the card agree with the plain f32 path on
-   the CPU.
+   the CPU, started with cuDNN's TF32 flag at its default (True): the f32
+   convs switch it off themselves.
 4. train: seeded synthetic stage-1 artifacts (two train_60 videos of 8
    frames: [6,1000,7,7] f16 CAM cubes, [480,960,2] f32 flows) feed
    ``cli.train_temporal.main(["--device", "cuda", ...])`` at full width
@@ -87,9 +92,23 @@ Phases, in order; any failure exits non-zero before the result lines:
      against the card's f32 run.
    - the same CLI in bf16 on the extracted artifacts with seeded synthetic
      GT: finite metrics, 15 K1 launches per window batch.
+   - ``cli.extract_features`` on ``e2e_full`` with the host remap in rgb8
+     and in yuv420 (K3 only): yuv420 within the JAX package's bound of rgb8
+     (relative max error < 0.08, correlation > 0.998).
+   - ``cli.extract_features -om`` on ``e2e_full`` (all-device stage 1):
+     Horn-Schunck motion over the f16 link within 2e-3 max|flow| + 1e-4 of
+     the f32 link, then the variational and Farneback backends; names from
+     000002, [480,960,2] f32.
+   - ``extract_frames -of -om`` on 8 frames of a train_60 video, then
+     ``cli.train_temporal`` 2 steps on them (15 K1, 14 dx launches a step),
+     and ``SaliencyModel`` serving yuv420 within the bound of rgb8.
+   - both flow solvers on the card against the port's CPU solve at 240x480
+     (1e-3 px), the batch equal to each pair alone.
    - then, outside the counted runs: frames/s of extraction with artifacts
-     only, windows/s of ``infer_video`` at 64 windows per batch (disk reads
-     included), and a profile of a 16-frame stage-1 step with K3's row.
+     only, with and without -om, windows/s of ``infer_video`` at 64 windows
+     per batch (disk reads included), flow pairs/s of both solvers at 16
+     pairs of 480x960 with a profile of a Horn-Schunck solve, and a profile
+     of a 16-frame stage-1 step with K3's row.
 
 The last lines are ``{"kernels": [...]}``, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -226,12 +245,48 @@ def check_cube_conv(n: int, cin: int, cout: int, dtype: torch.dtype, gen) -> dic
 
 
 def depth_splits(dtype: torch.dtype, n: int, k: int) -> int:
-    """The depth splits the wrapper picks for a conv on 7x7 cubes (1 in f32)."""
+    """The depth splits the wrapper picks for a conv on 7x7 cubes (1 in f32;
+    bf16 channel counts padded to multiples of 8 first)."""
     from cp360_tpu_torch.ops import cube_conv
 
     if dtype != torch.bfloat16:
         return 1
-    return cube_conv.depth_splits(294, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    return cube_conv.depth_splits(294, cube_conv._padded(n), cube_conv._padded(k),
+                                  torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def check_padded_train(n: int, cin: int, cout: int, gen) -> dict:
+    """bf16 ``cube_conv3x3_train`` at channel counts the kernels take
+    zero-padded (Cin or Cout not a multiple of 8): forward, dx and the dw
+    and db it returns, against autograd of the plain version in f32 on the
+    same bf16-rounded operands, at K1's bf16 tolerance."""
+    from cp360_tpu_torch.ops import cube_conv
+
+    dev = "cuda"
+    x = torch.randn(n, 6, 7, 7, cin, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(3, 3, cin, cout, generator=gen, device=dev) * (2.0 / (9 * cin)) ** 0.5
+    b = torch.randn(cout, generator=gen, device=dev) * 0.1
+    wc, bc = w.bfloat16(), b.bfloat16()
+    dy = torch.randn(n, 6, 7, 7, cout, generator=gen, device=dev).to(torch.bfloat16)
+    xg, wp, bp = x.clone().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()
+    k0 = (cube_conv.launches, cube_conv.dx_launches)
+    out = cube_conv.cube_conv3x3_train(xg, wp, bp, wc, bc)
+    out.backward(dy)
+    launched = (cube_conv.launches - k0[0], cube_conv.dx_launches - k0[1])
+    xf, wf, bf = (t.float().requires_grad_() for t in (x, wc, bc))
+    ref = cube_conv.cube_conv3x3_plain(xf, wf, bf)
+    ref.backward(dy.float())
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in (("out", out, ref), ("dx", xg.grad, xf.grad),
+                            ("dw", wp.grad, wf.grad), ("db", bp.grad, bf.grad)):
+        errs[name] = ((got.float() - want).abs().max().item(), want.abs().max().item())
+    ok = (all(e <= 1e-2 * m for e, m in errs.values()) and launched == (1, 1)
+          and tuple(wp.grad.shape) == (3, 3, cin, cout) and tuple(xg.grad.shape) == tuple(x.shape))
+    res = {"shape": f"bf16 train x[{n},6,7,7,{cin}] -> {cout}", "launches": launched,
+           "max_abs_err_and_ref": errs, "passed": ok}
+    print(f"K1 padded train {json.dumps(res)}", flush=True)
+    return res
 
 
 def split_sweep(n: int, cin: int, cout: int, gen) -> dict:
@@ -435,6 +490,14 @@ def phase_kernels() -> dict:
             check_cube_conv_dx(8, 2000, 4000, torch.bfloat16, gen),
             check_cube_conv_dx(1, 4000, 4000, torch.bfloat16, gen),
             check_cube_conv_dx(2, 2000, 4000, torch.float32, gen)]
+    # channel counts the bf16 kernels take zero-padded: a ConvLSTM with
+    # hidden_size 250 (conv1 Cin 1250 -> 1000) and an odd hidden_size 63
+    # (input 63: Cin 126 -> Cout 252)
+    padded = [check_cube_conv(8, 1250, 1000, torch.bfloat16, gen),
+              check_cube_conv(8, 126, 252, torch.bfloat16, gen),
+              check_cube_conv_dx(8, 1250, 1000, torch.bfloat16, gen),
+              check_cube_conv_dx(8, 126, 252, torch.bfloat16, gen),
+              check_padded_train(2, 1250, 1000, gen), check_padded_train(2, 126, 252, gen)]
     for n in (8, 1):
         split_sweep(n, 4000, 4000, gen)
     k2 = [check_equi_to_cube(8, torch.uint8, gen),
@@ -444,7 +507,7 @@ def phase_kernels() -> dict:
           check_cube_pool(16, torch.bfloat16, gen),
           check_cube_pool(2, torch.float32, gen),
           check_cube_pool(8, torch.bfloat16, gen, specials=True)]
-    bad = [r["shape"] for r in k1 + k1dx + k2 + k3 if not r["passed"]]
+    bad = [r["shape"] for r in k1 + k1dx + padded + k2 + k3 if not r["passed"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     # the JSON line reports the dominant main-path conv (2 of the 3 per
@@ -563,10 +626,13 @@ def phase_slice() -> dict:
             if err > 1e-5 * float(np.abs(offline).max()):
                 fail(f"served prediction differs from offline window_infer by {err}")
 
-    # f32 on the card (kernels, TF32 off) vs the plain f32 path on the CPU
+    # f32 on the card (kernels) vs the plain f32 path on the CPU, with
+    # cuDNN's TF32 flag at its default (True): the port's f32 convs switch
+    # it off themselves
     from cp360_tpu_torch.compat.jax_params import clstm_from_params, resnet_from_params
 
     errs = {}
+    torch.backends.cudnn.allow_tf32 = True
     with torch.no_grad():
         frame = torch.from_numpy(frames[0])[None]
         window = torch.stack(served[0][1])[None].float()
@@ -584,7 +650,10 @@ def phase_slice() -> dict:
             if not err <= 1e-3 * errs[name][1]:
                 fail(f"f32 {name} on the card differs from the CPU by {err} "
                      f"(max|ref| {errs[name][1]})")
-    print(f"slice: f32 card vs CPU max|err| (max|ref|): {errs}", flush=True)
+    if torch.backends.cudnn.allow_tf32:
+        fail("an f32 stage 1 left cuDNN's TF32 on")
+    print(f"slice: f32 card vs CPU, started with cuDNN's flags at their defaults, "
+          f"max|err| (max|ref|): {errs}", flush=True)
 
     n_req = len(preds) + sum(len(s) for s in sessions)
     stats = {
@@ -924,6 +993,198 @@ def synthetic_gt(root: Path, vid: str, ids, rng) -> None:
         np.save(d / f"{i:05}.npy", m)
 
 
+def smooth_texture(h: int, w: int, rng) -> np.ndarray:
+    """[h, w] u8 multi-scale smooth texture (a natural-image-like
+    spectrum), as the JAX package's flow and yuv420 tests make them."""
+    import cv2
+
+    img = np.zeros((h, w))
+    for scale in (4, 8, 16, 32):
+        small = rng.rand(h // scale + 2, w // scale + 2)
+        img += cv2.resize(small, (w, h), interpolation=cv2.INTER_CUBIC) * scale
+    return ((img - img.min()) / (img.max() - img.min()) * 255).astype(np.uint8)
+
+
+def natural_frame(h: int, w: int, rng) -> np.ndarray:
+    img = smooth_texture(h, w, rng)
+    return np.stack([img, np.roll(img, 2, 0), np.roll(img, 5, 1)], -1)
+
+
+def flow_scenes(n: int, h: int, w: int, seed: int):
+    """n seeded grayscale pairs [n, h, w] u8 with their ground-truth flow:
+    a texture, then the same texture moved by a translation (3, -2) px
+    (even pairs) or by a disc moving (4, 2.5) px over a still background
+    (odd pairs)."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    gx, gy = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    prev, cur, gts = [], [], []
+    for i in range(n):
+        img = smooth_texture(h, w, rng)
+        gt = np.zeros((h, w, 2), np.float32)
+        if i % 2 == 0:
+            gt[...] = (3.0, -2.0)
+        else:
+            gt[((yy - h * 0.5) ** 2 + (xx - w * 0.4) ** 2) < (h * 0.22) ** 2] = (4.0, 2.5)
+        prev.append(img)
+        cur.append(cv2.remap(img, gx - gt[..., 0], gy - gt[..., 1], cv2.INTER_LINEAR,
+                             borderMode=cv2.BORDER_REFLECT))
+        gts.append(gt)
+    return np.stack(prev), np.stack(cur), np.stack(gts)
+
+
+FLOW_CARD_TOL_PX = 1e-3  # card vs the CPU's plain solve, both backends
+
+
+def check_flow_solvers() -> dict:
+    """Both device flow solvers on the card against the port's own solve on
+    the CPU (the same eager torch ops: only the card's rounding can
+    differ), at 240x480 (res (480, 240)), 4 pairs: within
+    FLOW_CARD_TOL_PX, the batch equal to each pair solved alone, and the
+    end-point error against the scenes' ground truth (16-px margin)."""
+    from cp360_tpu_torch.flow.optical_flow import horn_schunck_flow_batch, u8_to_unit
+    from cp360_tpu_torch.flow.variational import brox_flow_batch
+
+    prev, cur, gt = flow_scenes(4, 240, 480, SEED + 7)
+    res = {}
+    for name, solve in (("horn_schunck", horn_schunck_flow_batch),
+                        ("variational", brox_flow_batch)):
+        tp, tc = (u8_to_unit(torch.from_numpy(a).cuda()) for a in (prev, cur))
+        card = solve(tp, tc).cpu().numpy()
+        alone = np.stack([solve(tp[i:i + 1], tc[i:i + 1])[0].cpu().numpy() for i in range(4)])
+        cpu = solve(u8_to_unit(torch.from_numpy(prev)), u8_to_unit(torch.from_numpy(cur)))
+        epe = np.linalg.norm(card - gt, axis=-1)[:, 16:-16, 16:-16].mean(axis=(1, 2))
+        res[name] = {"card_vs_cpu_px": float(np.abs(card - cpu.numpy()).max()),
+                     "tol_px": FLOW_CARD_TOL_PX,
+                     "batch_vs_alone_px": float(np.abs(card - alone).max()),
+                     "epe_px": [float(e) for e in epe], "max_abs_flow": float(np.abs(card).max())}
+    print(f"video: flow solvers on the card vs the CPU, 4 pairs of 240x480: "
+          f"{json.dumps(res)}", flush=True)
+    for name, r in res.items():
+        if not (r["card_vs_cpu_px"] <= FLOW_CARD_TOL_PX and r["batch_vs_alone_px"] == 0.0
+                and max(r["epe_px"]) < 0.5):
+            fail(f"{name} flow on the card: {r}")
+    return res
+
+
+def flow_speed() -> dict:
+    """Pairs per second of each device solver at 16 pairs of 480x960 (the
+    extraction's batch at flow_h 480), host clock around a solve that ends
+    in a copy to the host, median of 3 after a warm-up; and a profile of one
+    Horn-Schunck solve."""
+    from cp360_tpu_torch.flow.optical_flow import get_batch_solver_u8
+
+    prev, cur, _ = flow_scenes(16, 480, 960, SEED + 8)
+    stats = {}
+    for name in ("horn_schunck", "variational"):
+        solve = get_batch_solver_u8(name, "float16", "cuda")
+        solve(prev, cur).cpu()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            solve(prev, cur).cpu()
+            times.append(time.monotonic() - t)
+        stats[f"{name}_s_per_16_pairs"] = times
+        stats[f"{name}_pairs_per_s"] = 16 / float(np.median(times))
+    solve = get_batch_solver_u8("horn_schunck", "float16", "cuda")
+    prof = profile_step(lambda: solve(prev, cur).cpu(), top=8)
+    print(f"video: horn_schunck solve, 16 pairs of 480x960, profile {json.dumps(prof)}",
+          flush=True)
+    stats["horn_schunck_idle_share"] = prof.get("idle_share")
+    return stats
+
+
+def train_on_port_motion(model, root: Path) -> dict:
+    """Video to trained weights with no artifact from the JAX package:
+    ``extract_frames`` with -of -om writes a train_60 video's CAM cubes and
+    Horn-Schunck motion at full width (8 frames of a texture moving 6 px a
+    frame: 7 artifacts, 2 windows), then ``cli.train_temporal`` trains 2
+    steps on them.  Returns the launches of both runs."""
+    from cp360_tpu_torch.cli import train_temporal
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.data.dataset import builtin_split
+    from cp360_tpu_torch.ops import cube_conv, cube_pool, equi_gather
+    from cp360_tpu_torch.pipelines.extract import extract_frames
+
+    vid = builtin_split("train_60")[0]
+    base = natural_frame(960, 1920, np.random.RandomState(SEED + 9))
+    frames = [np.roll(base, 6 * t, axis=1) for t in range(8)]
+    cfg = Config(cube_dim=224, equi_h=1920, equi_w=960, compute_dtype="bfloat16",
+                 host_cube_remap=False, extract_batch=16, opt_flow=True,
+                 flow_backend="horn_schunck", feat_dtype="float16")
+    k0 = (cube_conv.launches, cube_conv.dx_launches, equi_gather.launches, cube_pool.launches)
+    n = extract_frames(model, cfg, frames, str(root / "art" / vid), output_img=False,
+                       output_feature=True, output_motion=True)
+    motion = sorted(os.listdir(root / "art" / vid / "motion"))
+    flow = np.load(root / "art" / vid / "motion" / motion[-1])
+    print(f"video: -om extraction of {vid}: {n} artifacts, motion {motion[0]}..{motion[-1]}, "
+          f"{flow.shape} {flow.dtype}, mean dx {float(flow[..., 0].mean())} "
+          f"(the texture moves 3 px a frame at flow_h 480)", flush=True)
+    if n != 7 or motion != [f"{i:06}.npy" for i in range(2, 9)] \
+            or flow.shape != (480, 960, 2) or flow.dtype != np.float32:
+        fail("extraction with -om wrote the wrong motion artifacts")
+    metrics = root / "metrics.jsonl"
+    k1 = (cube_conv.launches, cube_conv.dx_launches)
+    train_temporal.main(["--input", str(root / "art"), "--device", "cuda",
+                         "--metrics-jsonl", str(metrics), "--set", f"checkpoint_path={root / 'ck'}",
+                         "--set", "epochs=1", "--set", "summary_freq=1",
+                         "--set", "clstm_conv_impl=pallas"])
+    torch.cuda.synchronize()
+    recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+    k1 = (cube_conv.launches - k1[0], cube_conv.dx_launches - k1[1])
+    print(f"video: train_temporal on the port's own motion: {len(recs)} steps, losses "
+          f"{[r['loss_avg'] for r in recs]}; K1 {k1[0]}, dx {k1[1]} launches", flush=True)
+    if len(recs) != 2 or not all(np.isfinite(r["loss_avg"]) for r in recs) \
+            or k1 != (30, 28):
+        fail(f"training on port-made motion: {len(recs)} steps, K1/dx {k1}")
+    return {"cube_conv3x3": cube_conv.launches - k0[0],
+            "cube_conv3x3_dx": cube_conv.dx_launches - k0[1],
+            "equi_to_cube": equi_gather.launches - k0[2],
+            "cube_pool3x3s2": cube_pool.launches - k0[3]}
+
+
+def yuv_close(a: np.ndarray, b: np.ndarray):
+    """(relative max error, correlation) of b against a, and whether they
+    are within the JAX package's yuv420 bound (0.08, 0.998)."""
+    rel = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-6))
+    corr = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+    return rel, corr, rel < 0.08 and corr > 0.998
+
+
+def serve_yuv420() -> dict:
+    """``SaliencyModel`` at full width with ``host_cube_remap: true``, f32,
+    serving one natural-spectrum frame as rgb8 and as yuv420: within the
+    JAX package's bound (tests/test_serving.py:526-547).  K3 runs on both."""
+    from cp360_tpu_torch.compat import jax_params
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.ops import cube_pool
+    from cp360_tpu_torch.serving.server import SaliencyModel
+
+    params = jax_params.init_resnet_params(SEED, "resnet50", 1000)
+    cfg = Config(cube_dim=224, equi_h=1920, equi_w=960, compute_dtype="float32",
+                 host_cube_remap=True, serve_max_batch=2)
+    frame = natural_frame(960, 1920, np.random.RandomState(SEED + 10))
+    k3 = cube_pool.launches
+    sal = {}
+    for fmt in ("rgb8", "yuv420"):
+        model = SaliencyModel(params, cfg.replace(upload_format=fmt), device="cuda")
+        try:
+            sal[fmt] = model.predict(frame)
+        finally:
+            model.close()
+        del model
+    rel, corr, ok = yuv_close(sal["rgb8"], sal["yuv420"])
+    k3 = cube_pool.launches - k3
+    print(f"video: serving yuv420 vs rgb8 (host remap, f32, one 960x1920 frame): relative "
+          f"max error {rel} (limit 0.08), correlation {corr} (limit 0.998); K3 {k3}", flush=True)
+    if not ok or k3 != 2:
+        fail(f"served yuv420 out of the bound of rgb8 (K3 {k3})")
+    return {"cube_pool3x3s2": k3}
+
+
 def phase_video() -> dict:
     from cp360_tpu_torch.cli import extract_features
     from cp360_tpu_torch.compat import jax_params
@@ -957,7 +1218,8 @@ def phase_video() -> dict:
         print(f"video: model, frames and warm-up in {time.monotonic() - t0:.1f} s", flush=True)
 
         art = tmp / "static_resnet50"
-        cube_conv.launches = equi_gather.launches = cube_pool.launches = 0
+        cube_conv.launches = cube_conv.dx_launches = equi_gather.launches = 0
+        cube_pool.launches = 0
         t0 = time.monotonic()
         written = sum(extract_frames(model, cfg, videos[v], str(art / v), output_img=True,
                                      output_feature=True) for v in vids)
@@ -997,32 +1259,41 @@ def phase_video() -> dict:
         # both stage-1 forms: all-device (K2 + K3), and the host cv2 remap
         # with the int8 codec (K3 only)
         full = Golden("e2e_full", tmp / "full")
-        for out, extra, want_k2 in (("static", [], True),
-                                    ("remap", ["--set", "host_cube_remap=true",
-                                               "--set", "transfer_codec=int8"], False)):
+
+        def extract_cli(out, *extra):
+            """cli.extract_features on the golden's mp4s: (seconds, K2, K3)."""
             cwd = Path.cwd()
             os.chdir(full.root)
             k2, k3 = equi_gather.launches, cube_pool.launches
             try:
                 t0 = time.monotonic()
                 extract_features.main(["--device", "cuda", "--out", out, "--mode", "resnet50",
-                                       "-of", "--weights", str(full.root / "resnet50.npz"),
+                                       "--weights", str(full.root / "resnet50.npz"),
                                        "--config", str(full.config), *extra])
                 torch.cuda.synchronize()
                 cli_s = time.monotonic() - t0
             finally:
                 os.chdir(cwd)
+            return cli_s, equi_gather.launches - k2, cube_pool.launches - k3
+
+        def artifacts(out, vid, sub):
+            d = full.root / "output" / f"{out}_resnet50" / vid / sub
+            return {p[:-4]: np.load(d / p) for p in sorted(os.listdir(d))}
+
+        for out, extra, want_k2 in (("static", [], True),
+                                    ("remap", ["--set", "host_cube_remap=true",
+                                               "--set", "transfer_codec=int8"], False),
+                                    ("remap_rgb8", ["--set", "host_cube_remap=true"], False)):
+            cli_s, k2, k3 = extract_cli(out, "-of", *extra)
             worst = 0.0
             for vid in full.vids:
-                ours_dir = full.root / "output" / f"{out}_resnet50" / vid / "cube_feat"
+                ours = artifacts(out, vid, "cube_feat")
                 want = full.group("feat", vid)
-                if sorted(p[:-4] for p in os.listdir(ours_dir)) != sorted(want):
+                if sorted(ours) != sorted(want):
                     fail(f"{vid}: golden artifact numbering differs")
                 for cnt, ref in want.items():
                     ref = ref.astype(np.float32)
-                    ours = np.load(ours_dir / f"{cnt}.npy")
-                    worst = max(worst, float(np.abs(ours - ref).max() / np.abs(ref).max()))
-            k2, k3 = equi_gather.launches - k2, cube_pool.launches - k3
+                    worst = max(worst, float(np.abs(ours[cnt] - ref).max() / np.abs(ref).max()))
             stats.update({f"golden_extract_{out}_rel_err": worst,
                           f"golden_extract_{out}_s": cli_s})
             print(f"video: extract_features CLI {' '.join(extra) or '(all-device)'} on the "
@@ -1030,6 +1301,61 @@ def phase_video() -> dict:
                   f"(limit 0.02); K2 {k2}, K3 {k3} launches", flush=True)
             if not worst < 0.02 or k3 == 0 or k2 != (k3 if want_k2 else 0):
                 fail(f"golden extraction ({out}): relative error {worst}, K2 {k2}, K3 {k3}")
+
+        # -- yuv420 from the host remap against the rgb8 run above, in f32
+        cli_s, k2, k3 = extract_cli("remap_yuv", "-of", "--set", "host_cube_remap=true",
+                                    "--set", "upload_format=yuv420")
+        yuv_rel, yuv_corr, yuv_ok = 0.0, 1.0, k3 > 0 and k2 == 0
+        for vid in full.vids:
+            rgb, yuv = artifacts("remap_rgb8", vid, "cube_feat"), artifacts("remap_yuv", vid,
+                                                                             "cube_feat")
+            yuv_ok &= sorted(rgb) == sorted(yuv)
+            for cnt in rgb:
+                rel, corr, ok = yuv_close(rgb[cnt], yuv[cnt])
+                yuv_rel, yuv_corr, yuv_ok = max(yuv_rel, rel), min(yuv_corr, corr), yuv_ok and ok
+        stats.update(golden_extract_yuv420_rel_err=yuv_rel, golden_extract_yuv420_corr=yuv_corr)
+        print(f"video: extract_features CLI yuv420 (host remap) vs rgb8 on the e2e_full mp4s in "
+              f"{cli_s:.1f} s: relative max error {yuv_rel} (limit 0.08), correlation "
+              f"{yuv_corr} (limit 0.998); K2 {k2}, K3 {k3} launches", flush=True)
+        if not yuv_ok:
+            fail("yuv420 extraction out of the JAX package's bound of rgb8")
+
+        # -- -om at full width on the golden's mp4s, all-device stage 1:
+        # Horn-Schunck over the f16 link (the default) and the f32 link, then
+        # the variational backend and Farneback (host cv2, a thread pool)
+        motion = {}
+        for out, extra in (("om_hs", []), ("om_hs_f32", ["--set", "flow_link_dtype=float32"]),
+                           ("om_variational", ["--set", "flow_backend=variational"]),
+                           ("om_farneback", ["--set", "flow_backend=farneback"])):
+            cli_s, k2, k3 = extract_cli(out, "-om", "--set", "opt_flow=true", *extra)
+            motion[out] = {vid: artifacts(out, vid, "motion") for vid in full.vids}
+            shapes = {(f.shape, f.dtype.name, bool(np.isfinite(f).all()), f.flags.c_contiguous)
+                      for m in motion[out].values() for f in m.values()}
+            names_ok = all(sorted(motion[out][v]) == sorted(full.group("feat", v))
+                           for v in full.vids)
+            stats[f"golden_extract_{out}_s"] = cli_s
+            print(f"video: extract_features CLI -om {' '.join(extra) or '(horn_schunck, f16 link)'}"
+                  f" on the e2e_full mp4s in {cli_s:.1f} s: motion "
+                  f"{sorted(motion[out][full.vids[0]])[:1]}.. {shapes}; K2 {k2}, K3 {k3}",
+                  flush=True)
+            if not names_ok or shapes != {((480, 960, 2), "float32", True, True)} \
+                    or k2 == 0 or k3 != k2:
+                fail(f"-om extraction ({out}) wrote the wrong motion artifacts")
+        link_err, link_tol = 0.0, 0.0
+        for vid in full.vids:
+            for cnt, a in motion["om_hs_f32"][vid].items():
+                b = motion["om_hs"][vid][cnt]
+                tol = 2e-3 * max(1e-3, float(np.abs(a).max())) + 1e-4
+                link_err = max(link_err, float(np.abs(a - b).max()))
+                link_tol = max(link_tol, tol)
+                if not np.abs(a - b).max() <= tol:
+                    fail(f"{vid}/{cnt}: the f16 link is {np.abs(a - b).max()} px off (limit {tol})")
+        backends = {out: float(np.mean([np.abs(f).mean() for m in motion[out].values()
+                                        for f in m.values()])) for out in motion}
+        stats.update(om_f16_vs_f32_link_px=link_err, om_mean_abs_flow_px=backends)
+        print(f"video: -om f16 link vs f32 link: max {link_err} px (limit per artifact "
+              f"2e-3 max|flow| + 1e-4, up to {link_tol}); mean |flow| by backend {backends}",
+              flush=True)
 
         # -- stage 2 + metrics, exact composition, on the scaled golden
         scaled = Golden("e2e", tmp / "scaled")
@@ -1103,8 +1429,14 @@ def phase_video() -> dict:
               f"K1 {k1} (want {want_k1})", flush=True)
         if not all(np.isfinite(result)) or k1 != want_k1:
             fail(f"stage 2 on extracted artifacts: result {result}, K1 {k1}")
-        launches = {"cube_conv3x3": cube_conv.launches, "equi_to_cube": equi_gather.launches,
-                    "cube_pool3x3s2": cube_pool.launches}
+        # -- from a video to trained weights on the port's own motion, and
+        # serving yuv420
+        train_on_port_motion(model, tmp / "motion_train")
+        serve_yuv420()
+        launches = {"cube_conv3x3": cube_conv.launches, "cube_conv3x3_dx": cube_conv.dx_launches,
+                    "equi_to_cube": equi_gather.launches, "cube_pool3x3s2": cube_pool.launches}
+        print(f"video: launches over the phase's counted runs {json.dumps(launches)}",
+              flush=True)
 
         # -- timings outside the counted runs
         t0 = time.monotonic()  # extraction writing artifacts only (-of)
@@ -1131,6 +1463,17 @@ def phase_video() -> dict:
             prof = profile_step(lambda: stage1_batch(model, x16, 224, out_dtype=torch.float16),
                                 top=14, match="cube_pool3x3s2")
         print(f"video: stage-1 step, 16 frames, profile {json.dumps(prof)}", flush=True)
+        # the flow checks and timings come after the earlier slices'
+        # numbers, so those are taken where they were before the flow slice
+        stats["flow_card_vs_cpu"] = check_flow_solvers()
+        t0 = time.monotonic()  # extraction -of -om (Horn-Schunck, f16 link)
+        cfg_om = cfg.replace(opt_flow=True, flow_backend="horn_schunck")
+        written = sum(extract_frames(model, cfg_om, videos[v], str(tmp / "feat_motion" / v),
+                                     output_img=False, output_motion=True) for v in vids)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        stats.update(extract_of_om_fps=written / wall, extract_of_om_s=wall)
+        stats.update(flow_speed())
         print(f"video: {json.dumps(stats)}", flush=True)
         return launches
     finally:

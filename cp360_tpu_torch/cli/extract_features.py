@@ -2,7 +2,7 @@
 on one GPU.
 
     python -m cp360_tpu_torch.cli.extract_features --config config.yaml \
-        --out static -of [-oi] [--weights resnet50.npz] [--max-frames N] \
+        --out static -of [-oi] [-om] [--weights resnet50.npz] [--max-frames N] \
         [--device cuda|cpu] [--set FIELD=VALUE ...]
 
 The port of ``cp360_tpu/cli/extract_features.py`` (reference driver
@@ -12,10 +12,12 @@ test_25/train_60 splits, chosen by ``test_mode``/``train_mode``).
 Artifacts go to ``<output_path>/<out>_<mode>/<vid>/``; a rerun resumes
 where the artifacts stop.  Weights are the JAX package's ``.npz``
 (compat/jax_params.py); without ``--weights`` the backbone is randomly
-initialized from a seed (demo only).  Extraction runs on the card; without
-one it exits unless ``--device cpu`` is given.  Not ported, and refused:
-``-om`` with ``opt_flow: true`` (optical flow), ``--data-parallel``,
-``--supervise``, archs other than resnet50, ``upload_format: yuv420``.
+initialized from a seed (demo only).  ``-om`` with ``opt_flow: true``
+writes the optical flow (``flow_backend``; the device backends solve on
+the extraction's device); ``host_cube_remap: true`` with ``upload_format:
+yuv420`` uploads 4:2:0 planes.  Extraction runs on the card; without one it
+exits unless ``--device cpu`` is given.  Not ported, and refused:
+``--data-parallel``, ``--supervise``, archs other than resnet50.
 """
 
 from __future__ import annotations
@@ -55,11 +57,12 @@ def main(argv=None):
     if args.supervise is not None or args.data_parallel:
         raise NotImplementedError(
             "--supervise and --data-parallel are not ported to cp360_tpu_torch yet "
-            "(the port extracts on one card); see ROADMAP.md queue 1 items 6 and 10")
+            '(the port extracts on one card); see ROADMAP.md, "trainer options" and '
+            '"parallel"')
     if args.mode != "resnet50":
         raise NotImplementedError(
             f"--mode {args.mode!r} is not ported yet (ported: resnet50); see "
-            "ROADMAP.md queue 1 items 4 and 9")
+            'ROADMAP.md, "resnet18/34/101/152" and "vgg16-bn and mobilenet_v2"')
     check_extract_config(cfg, args.output_motion)
     if args.weights and not args.weights.endswith(".npz"):
         raise SystemExit(f"{args.weights}: the port reads .npz checkpoints only "

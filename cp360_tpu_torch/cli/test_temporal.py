@@ -60,7 +60,8 @@ def main(argv=None):
     if args.supervise is not None or args.data_parallel:
         raise NotImplementedError(
             "--supervise and --data-parallel are not ported to cp360_tpu_torch yet "
-            "(the port infers on one card); see ROADMAP.md queue 1 items 6 and 10")
+            '(the port infers on one card); see ROADMAP.md, "trainer options" and '
+            '"parallel"')
     if cfg.transfer_codec not in ("none", "int8"):
         raise ValueError(f"transfer_codec={cfg.transfer_codec!r} is not one of "
                          "'none', 'int8'")

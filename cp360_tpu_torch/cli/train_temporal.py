@@ -50,7 +50,8 @@ def main(argv=None):
     cfg = config_from_args(args)
     if args.supervise is not None:
         raise NotImplementedError("--supervise (restart-on-stall supervision) is not "
-                                  "ported to cp360_tpu_torch yet; see ROADMAP.md queue 1 item 6")
+                                  'ported to cp360_tpu_torch yet; see ROADMAP.md, '
+                                  '"trainer options"')
     if args.data_parallel:
         cfg = cfg.replace(mesh_data=args.data_parallel)
     if args.profile_dir:

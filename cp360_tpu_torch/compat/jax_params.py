@@ -112,7 +112,8 @@ def convert_resnet_state_dict(sd: Mapping[str, np.ndarray], arch: str = "resnet5
     """torchvision-style ResNet state dict (OIHW convs, ``fc.weight``
     [K, C]) -> the JAX package's ResNet param tree (HWIO, ``fc`` [C, K])."""
     if arch not in ARCHS:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet; see ROADMAP.md")
+        raise NotImplementedError(
+            f'arch {arch!r} is not ported yet; see ROADMAP.md, "resnet18/34/101/152"')
     params = {"conv1": {"w": _hwio(sd["conv1.weight"])}, "bn1": _bn_sd(sd, "bn1")}
     for li, depth in enumerate(ARCHS[arch]):
         stage = []
@@ -175,7 +176,8 @@ def bn_params(c: int) -> dict:
 def init_resnet_params(seed: int, arch: str = "resnet50", num_classes: int = 1000) -> dict:
     """A He-initialized ResNet param tree in the JAX package's structure."""
     if arch not in ARCHS:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet; see ROADMAP.md")
+        raise NotImplementedError(
+            f'arch {arch!r} is not ported yet; see ROADMAP.md, "resnet18/34/101/152"')
     rs = np.random.RandomState(seed)
     params = {"conv1": {"w": he_conv(rs, 7, 7, 3, 64)}, "bn1": bn_params(64)}
     inplanes = 64

@@ -3,12 +3,13 @@
 The port's own copy of the JAX package's ``Config`` (same field names,
 types and defaults, so one ``config.yaml`` configures both packages).  The
 flat key set is the reference config.yaml:1-41 plus the extensions the JAX
-package added.  Fields that only the JAX package reads (flow, training,
-extraction, mesh and link settings) are kept so a shared file still
+package added.  Fields that only the JAX package reads (mesh, link and
+some training and extraction settings) are kept so a shared file still
 validates; the port's serving path reads ``cube_dim``, ``equi_h``/``equi_w``,
 ``input_size``/``hidden_size``, ``seq_len``, ``cube_pad``, ``compute_dtype``,
 ``host_cube_remap``, ``clstm_conv_impl``, ``upload_format``, ``mesh_data``
-and the ``serve_*`` keys.  Its trainer (``train/loop.py``) reads the
+and the ``serve_*`` keys; its extraction also reads ``opt_flow``,
+``flow_h``, ``flow_backend`` and ``flow_link_dtype``.  Its trainer (``train/loop.py``) reads the
 training keys too: ``checkpoint_path``, ``epochs``, ``save_freq``,
 ``summary_freq``, ``lr`` and the ``lr_*`` schedule keys, ``grad_clip_norm``,
 ``batch_size``, ``flow_h``, the loss weights ``l_s``/``l_t``/
@@ -93,7 +94,7 @@ class Config:
     clstm_conv_impl: str = "xla"  # 'xla' | 'pallas'; in the port both name
     #   the one fused cube-pad conv (ops/cube_conv.py)
     keep_checkpoints: int = 0
-    upload_format: str = "rgb8"  # 'rgb8' | 'yuv420' (the port: rgb8 only)
+    upload_format: str = "rgb8"  # 'rgb8' | 'yuv420' (with host_cube_remap)
     upload_depth: int = 4
     fetch_depth: int = 1
     transfer_codec: str = "none"

@@ -97,8 +97,8 @@ class PrefetchLoader:
                  seed: int = 0, prefetch: int = 2, transfer_codec: str = "none"):
         if transfer_codec != "none":
             raise NotImplementedError(
-                f"transfer_codec={transfer_codec!r} is not ported yet (the int8 codec, "
-                "ROADMAP.md queue 1 item 1); use transfer_codec: none")
+                f"transfer_codec={transfer_codec!r} is not ported yet (the int8 codec; "
+                'see ROADMAP.md, "trainer options"); use transfer_codec: none')
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle

@@ -108,7 +108,7 @@ class ResNet(nn.Module):
         if arch not in ARCHS:
             raise NotImplementedError(
                 f"arch {arch!r} is not ported yet (ported: {sorted(ARCHS)}); "
-                "see ROADMAP.md")
+                'see ROADMAP.md, "resnet18/34/101/152"')
         self.arch = arch
         self.use_cube_pad = use_cube_pad
         self.compute_dtype = compute_dtype

@@ -39,6 +39,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cp360_tpu_torch.models import layers
 from cp360_tpu_torch.ops import _build
@@ -264,7 +265,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"x, w, b on different devices: {x.device}, {w.device}, {b.device}")
 
 
-def _check_kernel_operands(name: str, tensors, c_in: int, c_out: int) -> bool:
+def _check_kernel_operands(name: str, tensors) -> bool:
     """The kernels' demands on CUDA operands; returns whether they are bf16."""
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or not dtypes <= {torch.bfloat16, torch.float32}:
@@ -272,10 +273,46 @@ def _check_kernel_operands(name: str, tensors, c_in: int, c_out: int) -> bool:
                         f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous operands")
-    is_bf16 = tensors[0].dtype == torch.bfloat16
-    if is_bf16 and (c_in % 8 or c_out % 8):
-        raise ValueError(f"the bf16 kernel needs Cin and Cout divisible by 8, got {c_in}, {c_out}")
-    return is_bf16
+    return tensors[0].dtype == torch.bfloat16
+
+
+# The bf16 kernel reads channel rows in 16-byte pieces (TMA boxes and
+# cp.async), so it takes Cin and Cout in multiples of 8.  Other counts (a
+# ConvLSTM with hidden_size 250 has Cin 1250; an odd hidden_size an odd
+# Cout) launch on zero-padded operands and the result is sliced: the zero
+# channels add exact zeros to every f32 sum, so the outputs are those of
+# the unpadded conv.
+CHANNEL_GRANULE = 8
+
+
+def _padded(c: int) -> int:
+    return -(-c // CHANNEL_GRANULE) * CHANNEL_GRANULE
+
+
+def _pad_weights(w: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    return F.pad(w, (0, cout - w.shape[3], 0, cin - w.shape[2]))
+
+
+def padded_forward(launch, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``launch(x, w, b)`` on channels zero-padded to multiples of 8, the
+    output sliced back to Cout (contiguous).  Each call pads x, w and b
+    afresh: x differs per call anyway, and a padded copy of the weights
+    held beside the trainer's f32 masters would go stale at every Adam
+    step.  At hidden_size 250 the padded copy of w is 22.6 MB, one pass
+    over memory beside a launch that reads w once per output tile."""
+    cin, cout = w.shape[2], w.shape[3]
+    pin, pout = _padded(cin), _padded(cout)
+    out = launch(F.pad(x, (0, pin - cin)), _pad_weights(w, pin, pout), F.pad(b, (0, pout - cout)))
+    return out[..., :cout].contiguous()
+
+
+def padded_dx(launch, dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``launch(dy, w)`` (an input gradient) on channels zero-padded to
+    multiples of 8, dx sliced back to Cin (contiguous)."""
+    cin, cout = w.shape[2], w.shape[3]
+    pin, pout = _padded(cin), _padded(cout)
+    dx = launch(F.pad(dy, (0, pout - cout)), _pad_weights(w, pin, pout))
+    return dx[..., :cin].contiguous()
 
 
 def cube_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -287,8 +324,9 @@ def cube_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
       b: [Cout] bias, x's dtype.
 
     Returns [N, 6, h, h, Cout] in x.dtype, accumulated in f32.  A CUDA
-    tensor launches the kernel (contiguous operands; bf16 needs Cin and
-    Cout divisible by 8); a CPU tensor runs the plain version.
+    tensor launches the kernel (contiguous operands; bf16 channel counts
+    that are not multiples of 8 launch zero-padded, :func:`padded_forward`);
+    a CPU tensor runs the plain version.
     """
     _check(x, w, b)
     if x.device.type == "cpu":
@@ -304,7 +342,9 @@ def _forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     global launches
     n, _, h, ww, cin = x.shape
     cout = w.shape[3]
-    is_bf16 = _check_kernel_operands("cube_conv3x3", (x, w, b), cin, cout)
+    is_bf16 = _check_kernel_operands("cube_conv3x3", (x, w, b))
+    if is_bf16 and (cin % CHANNEL_GRANULE or cout % CHANNEL_GRANULE):
+        return padded_forward(lambda *a: _forward(*a, splits=splits), x, w, b)
     out = torch.empty((n, 6, h, ww, cout), dtype=x.dtype, device=x.device)
     if is_bf16 and any(t.data_ptr() % 16 for t in (x, w, out)):
         raise ValueError("the bf16 kernel needs 16-byte aligned x, w and out")
@@ -332,8 +372,9 @@ def cube_conv3x3_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
       w: [3, 3, Cin, Cout] HWIO kernel, dy's dtype (read transposed in place).
 
     Returns dx [N, 6, h, h, Cin] in dy.dtype, accumulated in f32.  A CUDA
-    tensor launches the dx kernel (contiguous operands; bf16 needs Cin and
-    Cout divisible by 8); a CPU tensor runs :func:`cube_conv3x3_dx_plain`.
+    tensor launches the dx kernel (contiguous operands; bf16 channel counts
+    that are not multiples of 8 launch zero-padded, :func:`padded_dx`); a
+    CPU tensor runs :func:`cube_conv3x3_dx_plain`.
     """
     if dy.ndim != 5 or dy.shape[1] != 6 or dy.shape[2] != dy.shape[3]:
         raise ValueError(f"dy must be [N, 6, h, h, Cout], got {tuple(dy.shape)}")
@@ -353,7 +394,9 @@ def _dx(dy: torch.Tensor, w: torch.Tensor, splits: Optional[int] = None) -> torc
     global dx_launches
     n, _, h, ww, cout = dy.shape
     cin = w.shape[2]
-    is_bf16 = _check_kernel_operands("cube_conv3x3_dx", (dy, w), cin, cout)
+    is_bf16 = _check_kernel_operands("cube_conv3x3_dx", (dy, w))
+    if is_bf16 and (cin % CHANNEL_GRANULE or cout % CHANNEL_GRANULE):
+        return padded_dx(lambda *a: _dx(*a, splits=splits), dy, w)
     dx = torch.empty((n, 6, h, ww, cin), dtype=dy.dtype, device=dy.device)
     if is_bf16 and any(t.data_ptr() % 16 for t in (dy, w, dx)):
         raise ValueError("the bf16 kernel needs 16-byte aligned dy, w and dx")

@@ -16,11 +16,20 @@ any iterable of decoded BGR frames; :func:`extract_video` feeds it from
 (dataset_feat_extractor.py:102-137,181-193): ``<out>/cube_feat/NNNNNN.npy``
 [6, 1000, 7, 7] in ``feat_dtype``, ``<out>/img/NNNNNN.jpg`` and the overlay
 ``<out>/NNNNNN.jpg``; numbering starts at 000002 and artifact k holds video
-frame k-2.  Optical flow (``-om`` with ``opt_flow: true``) is not ported.
+frame k-2.  With ``-om`` and ``opt_flow: true``, ``<out>/motion/NNNNNN.npy``
+holds the flow [flow_h, 2 flow_h, 2] f32 from frame k-2 to frame k-1, from
+the decoded frames (``flow/``): a device backend (``horn_schunck``,
+``variational``) solves each batch's pairs in one call on the model's
+device, a host backend (``farneback``, ``deepflow``) runs per pair on a
+thread pool.
+
+``upload_format: yuv420`` (with ``host_cube_remap: true``) ships the faces
+as 4:2:0 planes, half the bytes, and :func:`stage1_batch_faces_yuv`
+rebuilds RGB on the device (``cp360_tpu/pipelines/extract.py:135-283``).
 
 cv2 and PIL are imported only where they are used: the video decoder, the
 host remap of ``host_cube_remap: true`` (:func:`host_equi_to_cube_u8`), a
-frame resize, and the images of ``output_img``.
+frame resize, the images of ``output_img`` and the host flow backends.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 from cp360_tpu_torch.config import Config
+from cp360_tpu_torch.flow import optical_flow
 from cp360_tpu_torch.geometry import build_equi2cube_maps
 from cp360_tpu_torch.models.cam import cam_forward
 from cp360_tpu_torch.models.resnet import ResNet
@@ -91,11 +101,102 @@ def stage1_batch_faces(model: ResNet, faces_u8: torch.Tensor,
     with ``codec="int8"`` (q int8 [N, 6, h, w, K], scales f16
     [N, 6, 1, 1, K], sal).
     """
-    scores, sal = _cam_and_saliency(model, faces_u8.float() / 255.0)
+    return _faces_outputs(*_cam_and_saliency(model, faces_u8.float() / 255.0), out_dtype, codec)
+
+
+def _faces_outputs(scores, sal, out_dtype: torch.dtype, codec: str):
     if codec == "int8":
         q, scales = quantize_cam(scores, scale_dtype=torch.float16)
         return q, scales, sal
     return scores.to(out_dtype), sal
+
+
+# ---- 4:2:0 chroma-subsampled upload (half the bytes of rgb8) -----------------
+#
+# Full-range BT.601 YUV with 2x2-subsampled chroma carries the faces in half
+# the bytes: Y [6, cd, cd] u8 + UV [6, cd/2, cd/2, 2] u8.  The device rebuilds
+# RGB (bilinear chroma upsample); the error is u8 rounding plus the chroma
+# edges' loss.
+
+_YUV_M = np.array(
+    [[0.299, 0.587, 0.114],        # Y
+     [-0.168736, -0.331264, 0.5],  # U (Cb)
+     [0.5, -0.418688, -0.081312]], # V (Cr)
+    np.float32,
+)
+
+
+def host_rgb_to_yuv420(faces_u8: np.ndarray):
+    """[..., h, w, 3] u8 RGB -> (Y [..., h, w] u8, UV [..., h/2, w/2, 2] u8).
+
+    Full-range BT.601; chroma is 2x2 box-averaged before quantization."""
+    f = faces_u8.astype(np.float32)
+    y = f @ _YUV_M[0]
+    u = f @ _YUV_M[1] + 128.0
+    v = f @ _YUV_M[2] + 128.0
+    uv = np.stack([u, v], axis=-1)
+    sh = uv.shape
+    h, w = sh[-3], sh[-2]
+    uv = uv.reshape(*sh[:-3], h // 2, 2, w // 2, 2, 2).mean(axis=(-4, -2))
+    return (np.clip(y + 0.5, 0, 255).astype(np.uint8),
+            np.clip(uv + 0.5, 0, 255).astype(np.uint8))
+
+
+def host_faces_for_upload(frame_u8: np.ndarray, cube_dim: int, yuv: bool):
+    """Cube-sample a frame on the host and package it for the upload: the
+    faces [6, cd, cd, 3] u8, or with ``yuv`` their (Y, UV) planes.  The one
+    definition of this preprocessing, shared by extraction and serving."""
+    faces = host_equi_to_cube_u8(frame_u8, cube_dim)
+    return host_rgb_to_yuv420(faces) if yuv else faces
+
+
+def _up2_axis_slice(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
+    """2x bilinear upsample along ``axis`` from shifted slices.
+
+    The taps are static: out[2j] = 0.25 in[j-1] + 0.75 in[j] (j >= 1,
+    out[0] = in[0]), out[2j+1] = 0.75 in[j] + 0.25 in[j+1] (j < n-1,
+    out[2n-1] = in[n-1]), the coefficients and operand order of the JAX
+    package's gather form (``_up2_axis_take``), which the slice form
+    equals bit for bit."""
+    n = x.shape[axis]
+    if n_out != 2 * n:
+        raise ValueError(f"the chroma upsample doubles an axis: {n} -> {n_out}")
+    lo, hi = x.narrow(axis, 0, n - 1), x.narrow(axis, 1, n - 1)
+    even = torch.cat([x.narrow(axis, 0, 1), 0.25 * lo + 0.75 * hi], dim=axis)
+    odd = torch.cat([0.75 * lo + 0.25 * hi, x.narrow(axis, n - 1, 1)], dim=axis)
+    inter = torch.stack([even, odd], dim=axis + 1)
+    return inter.reshape(*x.shape[:axis], n_out, *x.shape[axis + 1:])
+
+
+def _device_yuv420_to_rgb01(y_u8: torch.Tensor, uv_u8: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`host_rgb_to_yuv420` on the device -> f32 RGB in
+    [0, 1]: chroma upsampled bilinearly on the 2x2 box grid (edges
+    clamped), then the BT.601 inverse in the JAX package's order."""
+    y = y_u8.float()
+    uv = uv_u8.float() - 128.0
+    *lead, h2, w2, _ = uv.shape
+    uv_flat = uv.reshape(-1, h2, w2, 2)
+    up = _up2_axis_slice(_up2_axis_slice(uv_flat, 1, h2 * 2), 2, w2 * 2)
+    up = up.reshape(*lead, h2 * 2, w2 * 2, 2)
+    u, v = up[..., 0], up[..., 1]
+    r = y + 1.402 * v
+    g = y - 0.344136 * u - 0.714136 * v
+    b = y + 1.772 * u
+    rgb = torch.stack([r, g, b], dim=-1)
+    return torch.clamp(rgb, 0.0, 255.0) / 255.0
+
+
+def stage1_batch_faces_yuv(model: ResNet, y_u8: torch.Tensor, uv_u8: torch.Tensor,
+                           out_dtype: torch.dtype = torch.float16, codec: str = "none"):
+    """:func:`stage1_batch_faces` fed by 4:2:0 planes
+    (``cp360_tpu/pipelines/extract.py:249``).
+
+    Args:
+      y_u8: [N, 6, cd, cd] u8 luma.
+      uv_u8: [N, 6, cd/2, cd/2, 2] u8 chroma (Cb, Cr offset by 128).
+    """
+    cubes01 = _device_yuv420_to_rgb01(y_u8, uv_u8)
+    return _faces_outputs(*_cam_and_saliency(model, cubes01), out_dtype, codec)
 
 
 @lru_cache(maxsize=8)
@@ -122,29 +223,33 @@ def host_equi_to_cube_u8(frame_u8: np.ndarray, cube_dim: int) -> np.ndarray:
 
 
 def check_extract_config(cfg: Config, output_motion: bool) -> None:
-    """Refuse what the port's extraction does not run (yet)."""
-    if output_motion and cfg.opt_flow:
-        raise NotImplementedError(
-            "optical flow (-om with opt_flow: true) is not ported yet; see ROADMAP.md "
-            "queue 1 item 7 (or set opt_flow: false)")
-    if cfg.host_cube_remap and cfg.upload_format != "rgb8":
-        raise NotImplementedError(
-            f"upload_format {cfg.upload_format!r} is not ported yet (the port "
-            "uploads rgb8); see ROADMAP.md queue 1 item 1")
+    """Refuse values the extraction does not know."""
+    if cfg.upload_format not in ("rgb8", "yuv420"):
+        raise ValueError(f"upload_format={cfg.upload_format!r} is not one of 'rgb8', 'yuv420'")
     if cfg.transfer_codec not in ("none", "int8"):
         # 'auto' resolves through the JAX package's TPU link probe, which
         # the port does not carry
         raise ValueError(f"transfer_codec={cfg.transfer_codec!r} is not one of "
                          "'none', 'int8'")
+    if output_motion and cfg.opt_flow:
+        backends = optical_flow.DEVICE_BACKENDS + optical_flow.HOST_BACKENDS
+        if cfg.flow_backend not in backends:
+            raise ValueError(f"unknown flow backend {cfg.flow_backend!r} (one of {backends})")
+        if cfg.flow_link_dtype not in optical_flow.LINK_DTYPES:
+            raise ValueError(f"flow_link_dtype={cfg.flow_link_dtype!r} must be 'float16' "
+                             "or 'float32'")
 
 
-def _artifacts_exist(cnt, feat_dir, img_dir, out_dir, need_feat, need_img) -> bool:
+def _artifacts_exist(cnt, feat_dir, motion_dir, img_dir, out_dir,
+                     need_feat, need_motion, need_img) -> bool:
     if need_feat and not os.path.exists(os.path.join(feat_dir, f"{cnt:06}.npy")):
+        return False
+    if need_motion and not os.path.exists(os.path.join(motion_dir, f"{cnt:06}.npy")):
         return False
     if need_img and not (os.path.exists(os.path.join(img_dir, f"{cnt:06}.jpg"))
                          and os.path.exists(os.path.join(out_dir, f"{cnt:06}.jpg"))):
         return False
-    return need_feat or need_img
+    return need_feat or need_motion or need_img
 
 
 def _atomic_pil_save(img, path: str) -> None:
@@ -182,6 +287,16 @@ def _model_device(model: ResNet) -> torch.device:
     return next(iter(model.buffers())).device
 
 
+def _to_device(arrays, device: torch.device, pin: bool):
+    """Stack a list of u8 arrays straight into (pinned, on a card) staging
+    memory, one host copy per array, and start its copy to the device.
+    Returns (device tensor, staging tensor); the staging tensor must live
+    until the copy has run."""
+    host = torch.empty((len(arrays), *arrays[0].shape), dtype=torch.uint8, pin_memory=pin)
+    np.stack(arrays, out=host.numpy())
+    return host.to(device, non_blocking=True), host
+
+
 def extract_frames(model: ResNet, cfg: Config, frames: Iterable[np.ndarray], out_dir: str,
                    output_img: bool = True, output_feature: bool = True,
                    output_motion: bool = False, max_frames: Optional[int] = None,
@@ -190,29 +305,42 @@ def extract_frames(model: ResNet, cfg: Config, frames: Iterable[np.ndarray], out
     frames written or found complete.
 
     The first frame only seeds the reference's lag: artifact k = i + 1
-    holds frame i - 1, so numbering starts at 000002.  Frames go to the
-    model's device in batches of ``cfg.extract_batch``, the tail batch
-    padded with its last frame so every batch has one shape;
+    holds frame i - 1, so numbering starts at 000002, and motion k is the
+    flow from decoded frame i - 1 to frame i at ``(2 flow_h, flow_h)``.
+    Frames go to the model's device in batches of ``cfg.extract_batch``,
+    the tail batch padded with its last frame so every batch has one shape;
     ``cfg.host_cube_remap`` picks the host cv2 remap (``stage1_batch_faces``,
-    optional int8 codec) or the all-device step (``stage1_batch``).  Up to
+    or ``stage1_batch_faces_yuv`` with ``upload_format: yuv420``; optional
+    int8 codec) or the all-device step (``stage1_batch``).  With
+    ``output_motion`` and ``cfg.opt_flow``, a device flow backend solves
+    the batch's pairs (tail padded with its last pair) in one call on the
+    model's device and copies them back in ``cfg.flow_link_dtype``; a host
+    backend solves each pair on a pool of ``cfg.processes`` threads.  Up to
     ``cfg.fetch_depth`` batches stay in flight on the device before the
     oldest is copied back and written, so the host decodes and writes
-    while the device computes.  Extraction resumes:
-    frames whose requested artifacts exist are skipped, and every file is
-    written atomically, so an existing one is complete.
+    while the device computes.  Extraction resumes: frames whose requested
+    artifacts exist are skipped, and every file is written atomically, so
+    an existing one is complete.
     """
     check_extract_config(cfg, output_motion)
     batch_frames = cfg.extract_batch
     device = _model_device(model)
     pin = device.type == "cuda"
     feat_dir = os.path.join(out_dir, "cube_feat")
+    motion_dir = os.path.join(out_dir, "motion")
     img_dir = os.path.join(out_dir, "img")
-    for d in (out_dir, feat_dir, img_dir):
+    flow_on = output_motion and cfg.opt_flow
+    device_flow = flow_on and cfg.flow_backend in optical_flow.DEVICE_BACKENDS
+    flow_res = (cfg.flow_h * 2, cfg.flow_h)
+    for d in (out_dir, feat_dir, img_dir) + ((motion_dir,) if flow_on else ()):
         os.makedirs(d, exist_ok=True)
     out_dtype = torch.float16 if cfg.feat_dtype == "float16" else torch.float32
     np_dtype = np.float16 if cfg.feat_dtype == "float16" else np.float32
     codec = cfg.transfer_codec if cfg.host_cube_remap else "none"
+    yuv = cfg.host_cube_remap and cfg.upload_format == "yuv420"
     fetch_depth = max(1, cfg.fetch_depth)
+    flow_solver = (optical_flow.get_batch_solver_u8(cfg.flow_backend, cfg.flow_link_dtype,
+                                                    device) if device_flow else None)
     written = 0
 
     def compute(batch, remap_futs):
@@ -222,31 +350,42 @@ def extract_frames(model: ResNet, cfg: Config, frames: Iterable[np.ndarray], out
         else:
             items = [b[1] for b in batch]
         items += [items[-1]] * (batch_frames - len(items))
-        # stacked straight into (pinned, on a card) staging memory: one
-        # host copy per frame
-        host = torch.empty((len(items), *items[0].shape), dtype=torch.uint8, pin_memory=pin)
-        np.stack(items, out=host.numpy())
-        x = host.to(device, non_blocking=True)
-        if cfg.host_cube_remap:
-            out = stage1_batch_faces(model, x, out_dtype=out_dtype, codec=codec)
+        parts = list(zip(*items)) if yuv else [items]  # yuv: (Y, UV) per frame
+        xs, hosts = zip(*(_to_device(part, device, pin) for part in parts))
+        if yuv:
+            out = stage1_batch_faces_yuv(model, *xs, out_dtype=out_dtype, codec=codec)
+        elif cfg.host_cube_remap:
+            out = stage1_batch_faces(model, xs[0], out_dtype=out_dtype, codec=codec)
         else:
-            out = stage1_batch(model, x, cfg.cube_dim, out_dtype=out_dtype)
+            out = stage1_batch(model, xs[0], cfg.cube_dim, out_dtype=out_dtype)
         # the artifact layout [N, 6, K, h, w], made contiguous on the device:
         # np.save of a transposed view writes element by element
         out = (*(t.permute(0, 1, 4, 2, 3).contiguous() for t in out[:-1]), out[-1])
-        return batch, out, host
+        flows = None
+        if device_flow:  # one solve for the batch's pairs, the tail padded
+            pairs = [b[2].result() for b in batch]
+            pairs += [pairs[-1]] * (batch_frames - len(pairs))
+            flows = flow_solver(np.stack([p[0] for p in pairs]),
+                                np.stack([p[1] for p in pairs]))
+        return batch, out, hosts, flows
 
     def flush(pending) -> None:
         nonlocal written
-        batch, out, _ = pending
+        batch, out, _, flows = pending
         if len(out) == 3:  # int8 codec: (q, scales, sal) crossed back
             q, scales, sals = (t.cpu().numpy() for t in out)
             scores = dequantize_cam_np(q, scales, np_dtype)
         else:
             scores, sals = (t.cpu().numpy() for t in out)
-        for k, (cnt, frame_u8) in enumerate(batch):
+        if flows is not None:
+            flows = flows.cpu().numpy()
+        for k, (cnt, frame_u8, flow) in enumerate(batch):
             if output_feature:  # reference layout [6, K, h, w]
                 atomic_save(os.path.join(feat_dir, f"{cnt:06}.npy"), scores[k])
+            if flow_on:  # f32 [flow_h, 2 flow_h, 2], whatever the link dtype
+                motion = flows[k] if device_flow else flow.result()[1]
+                atomic_save(os.path.join(motion_dir, f"{cnt:06}.npy"),
+                            np.ascontiguousarray(motion, dtype=np.float32))
             if output_img:
                 from PIL import Image
 
@@ -260,6 +399,12 @@ def extract_frames(model: ResNet, cfg: Config, frames: Iterable[np.ndarray], out
     t_start = time.time()
     remap_pool = (ThreadPoolExecutor(max_workers=max(2, cfg.processes))
                   if cfg.host_cube_remap else None)
+    # flow: a device backend's pool only resizes and grays the pairs; a host
+    # backend's (cv2 releases the GIL) computes the whole flow
+    flow_pool = (ThreadPoolExecutor(max_workers=max(2, cfg.processes) if device_flow
+                                    else cfg.processes) if flow_on else None)
+    flow_job = (optical_flow._preprocess_pair if device_flow
+                else optical_flow.get_flow_fn(cfg.flow_backend))
     pendings: deque = deque()
     batch, remap_futs = [], []
     prev = None
@@ -272,16 +417,17 @@ def extract_frames(model: ResNet, cfg: Config, frames: Iterable[np.ndarray], out
                     prev = frame
                     continue
                 cnt = i + 1  # reference numbering starts at 000002
-                if _artifacts_exist(cnt, feat_dir, img_dir, out_dir, output_feature,
-                                    output_img):
+                if _artifacts_exist(cnt, feat_dir, motion_dir, img_dir, out_dir,
+                                    output_feature, flow_on, output_img):
                     written += 1
                     prev = frame
                     continue
                 frame_u8 = _resize_frame(prev, cfg)
-                batch.append((cnt, frame_u8))
+                flow = flow_pool.submit(flow_job, prev, frame, flow_res) if flow_on else None
+                batch.append((cnt, frame_u8, flow))
                 if remap_pool is not None:
-                    remap_futs.append(remap_pool.submit(host_equi_to_cube_u8, frame_u8,
-                                                        cfg.cube_dim))
+                    remap_futs.append(remap_pool.submit(host_faces_for_upload, frame_u8,
+                                                        cfg.cube_dim, yuv))
                 prev = frame
                 if len(batch) == batch_frames:
                     pendings.append(compute(batch, remap_futs))
@@ -293,8 +439,9 @@ def extract_frames(model: ResNet, cfg: Config, frames: Iterable[np.ndarray], out
             while pendings:
                 flush(pendings.popleft())
     finally:
-        if remap_pool is not None:
-            remap_pool.shutdown(wait=True, cancel_futures=True)
+        for pool in (remap_pool, flow_pool):
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
     print(f"{name}: {written} frames in {time.time() - t_start:.1f}s")
     return written
 

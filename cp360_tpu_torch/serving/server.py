@@ -34,7 +34,8 @@ Stage 1 runs in one of two forms, chosen by ``host_cube_remap`` as the JAX
 package's extraction does: ``false`` ships the u8 equirectangular frame and
 runs ``pipelines/extract.py::stage1_batch`` (the equi->cube kernel on the
 device); ``true`` samples the faces on the host with cv2 and runs
-``stage1_batch_faces``.
+``stage1_batch_faces``, or with ``upload_format: yuv420`` packs them as
+4:2:0 planes (half the bytes) for ``stage1_batch_faces_yuv``.
 
 Channel order passes through unchanged: the offline pipeline feeds cv2's
 BGR bytes labeled RGB (a reference quirk), so bit-parity with offline
@@ -150,13 +151,14 @@ class SaliencyModel:
         if cfg.mesh_data > 1:
             raise NotImplementedError(
                 "mesh_data > 1 (data-parallel serving) is not ported yet; "
-                "see ROADMAP.md")
-        if cfg.upload_format != "rgb8":
-            raise NotImplementedError(
-                f"upload_format {cfg.upload_format!r} is not ported yet "
-                "(the port serves rgb8); see ROADMAP.md")
+                'see ROADMAP.md, "parallel"')
+        if cfg.upload_format not in ("rgb8", "yuv420"):
+            raise ValueError(f"upload_format={cfg.upload_format!r} is not one of "
+                             "'rgb8', 'yuv420'")
         self.device = resolve_device(device)
         self.cfg = cfg
+        # yuv420 packs faces sampled on the host, as the extraction does
+        self._yuv = cfg.host_cube_remap and cfg.upload_format == "yuv420"
         self.arch = arch
         self.compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                               else torch.float32)
@@ -239,8 +241,10 @@ class SaliencyModel:
 
     def _host_prep(self, frame_u8: np.ndarray):
         """Resize to the protocol size (PIL, only when needed) and, with
-        ``host_cube_remap``, sample the cube faces (cv2) — pure host work on
-        the calling (HTTP handler) thread, so requests prep in parallel."""
+        ``host_cube_remap``, sample the cube faces (cv2) and, with yuv420,
+        pack them — pure host work on the calling (HTTP handler) thread, so
+        requests prep in parallel.  Returns the upload's parts: (equi,),
+        (faces,) or (Y, UV)."""
         t0 = time.monotonic()
         wh = (self.cfg.equi_h, self.cfg.equi_w)
         if frame_u8.shape[:2] == (wh[1], wh[0]):
@@ -252,14 +256,15 @@ class SaliencyModel:
                 wh, resample=getattr(Image, "LANCZOS", Image.Resampling.LANCZOS))
             equi = np.asarray(img, np.uint8)
         if self.cfg.host_cube_remap:
-            from cp360_tpu_torch.pipelines.extract import host_equi_to_cube_u8
+            from cp360_tpu_torch.pipelines.extract import host_faces_for_upload
 
-            out = host_equi_to_cube_u8(equi, self.cfg.cube_dim)
+            out = host_faces_for_upload(equi, self.cfg.cube_dim, self._yuv)
+            parts = out if self._yuv else (out,)
         else:
-            out = np.ascontiguousarray(equi)
+            parts = (np.ascontiguousarray(equi),)
         self.host_stats["prep_s"] += time.monotonic() - t0
         self.host_stats["preps"] += 1
-        return out
+        return parts
 
     def _run_stage1_batch(self, preps: list):
         """Batcher callback: N prepped requests -> ONE device step.
@@ -268,19 +273,23 @@ class SaliencyModel:
         copies the batch's saliency to the host once, and hands each caller
         (scores_i [6, h, w, K] f16 on the device, sal_i [2h, 4w] np.float32).
         """
-        from cp360_tpu_torch.pipelines.extract import stage1_batch, stage1_batch_faces
+        from cp360_tpu_torch.pipelines.extract import (
+            stage1_batch, stage1_batch_faces, stage1_batch_faces_yuv)
         from cp360_tpu_torch.serving.batcher import bucket_size
 
         n = len(preps)
         b = bucket_size(n, self._batcher.max_batch)
-        batch = torch.from_numpy(np.stack(list(preps) + [preps[-1]] * (b - n)))
+        padded = list(preps) + [preps[-1]] * (b - n)
         with torch.no_grad():
-            batch = batch.to(self.device)
-            if self.cfg.host_cube_remap:
-                scores, sal = stage1_batch_faces(self.model, batch,
+            parts = [torch.from_numpy(np.stack(p)).to(self.device) for p in zip(*padded)]
+            if self._yuv:
+                scores, sal = stage1_batch_faces_yuv(self.model, *parts,
+                                                     out_dtype=torch.float16)
+            elif self.cfg.host_cube_remap:
+                scores, sal = stage1_batch_faces(self.model, parts[0],
                                                  out_dtype=torch.float16)
             else:
-                scores, sal = stage1_batch(self.model, batch, self.cfg.cube_dim,
+                scores, sal = stage1_batch(self.model, parts[0], self.cfg.cube_dim,
                                            out_dtype=torch.float16)
         sal_np = sal.cpu().numpy()
         return [(scores[i], sal_np[i]) for i in range(n)]

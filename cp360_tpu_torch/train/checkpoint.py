@@ -3,8 +3,8 @@
 The port of ``cp360_tpu/train/checkpoint.py``'s ``NpzCheckpointer``: the
 full train state (params + Adam moments + counters) in one flat ``.npz``
 (``train/loop.py::save_train_state``), synchronous, restored exactly.  The
-JAX package's async, sharded ``orbax`` backend is not ported (ROADMAP.md
-queue 1 item 6).
+JAX package's async, sharded ``orbax`` backend is not ported (ROADMAP.md,
+"parallel").
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ class NpzCheckpointer:
 def make_checkpointer(backend: str, directory: str, schedule: bool = False):
     if backend == "orbax":
         raise NotImplementedError("checkpoint_backend: orbax is not ported to "
-                                  "cp360_tpu_torch yet; see ROADMAP.md queue 1 item 6")
+                                  'cp360_tpu_torch yet; see ROADMAP.md, "parallel"')
     if backend == "npz":
         return NpzCheckpointer(directory, schedule)
     raise ValueError(f"unknown checkpoint_backend {backend!r} (npz)")

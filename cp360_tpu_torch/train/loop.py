@@ -46,21 +46,22 @@ PARAM_ORDER = tuple((name, key) for name in sorted(CONV_NAMES) for key in ("b", 
 
 def check_config(cfg: Config) -> None:
     """Raise on the training options this port does not run yet."""
-    unported = [
-        (cfg.segment_windows > 1, "segment_windows > 1 (segment ingestion)"),
-        (cfg.transfer_codec != "none", f"transfer_codec={cfg.transfer_codec!r} (int8 codec)"),
-        (cfg.pipeline_stages > 1, "pipeline_stages > 1 (pipeline parallelism)"),
+    unported = [  # (hit, option, the ROADMAP.md item that ports it)
+        (cfg.segment_windows > 1, "segment_windows > 1 (segment ingestion)", "trainer options"),
+        (cfg.transfer_codec != "none", f"transfer_codec={cfg.transfer_codec!r} (int8 codec)",
+         "trainer options"),
+        (cfg.pipeline_stages > 1, "pipeline_stages > 1 (pipeline parallelism)", "parallel"),
         (cfg.mesh_data > 1 or cfg.mesh_model > 1,
-         "mesh_data/mesh_model > 1 (multi-card training)"),
-        (cfg.checkpoint_backend == "orbax", "checkpoint_backend: orbax"),
-        (cfg.eval_every_epochs > 0, "eval_every_epochs > 0 (in-training validation)"),
-        (bool(cfg.profile_dir), "profile_dir (training profiles)"),
+         "mesh_data/mesh_model > 1 (multi-card training)", "parallel"),
+        (cfg.checkpoint_backend == "orbax", "checkpoint_backend: orbax", "parallel"),
+        (cfg.eval_every_epochs > 0, "eval_every_epochs > 0 (in-training validation)",
+         "trainer options"),
+        (bool(cfg.profile_dir), "profile_dir (training profiles)", "trainer options"),
     ]
-    for hit, what in unported:
+    for hit, what, item in unported:
         if hit:
             raise NotImplementedError(
-                f"{what} is not ported to cp360_tpu_torch yet; see ROADMAP.md "
-                "queue 1 item 6")
+                f'{what} is not ported to cp360_tpu_torch yet; see ROADMAP.md, "{item}"')
     if cfg.checkpoint_backend != "npz":
         raise ValueError(f"unknown checkpoint_backend {cfg.checkpoint_backend!r} (npz)")
 

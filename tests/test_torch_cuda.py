@@ -116,8 +116,6 @@ def test_cuda_cube_conv_bf16_does_not_depend_on_the_batch(cuda, cin, cout):
 @pytest.mark.cuda
 def test_cuda_cube_conv_rejects_what_the_kernel_does_not_take(cuda):
     x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(6, 1, 12, 8))
-    with pytest.raises(ValueError):  # bf16 needs Cin % 8 == 0
-        cube_conv.cube_conv3x3(x.bfloat16(), w.bfloat16(), b.bfloat16())
     with pytest.raises(TypeError):
         cube_conv.cube_conv3x3(x.half(), w.half(), b.half())
     with pytest.raises(ValueError):
@@ -128,6 +126,33 @@ def test_cuda_cube_conv_rejects_what_the_kernel_does_not_take(cuda):
     buf = torch.empty(x16.numel() + 1, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # 16-byte alignment of the bf16 operands
         cube_conv.cube_conv3x3(buf[1:].view(x16.shape), w16, b16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cin,cout", [(2, 1250, 1000), (1, 126, 252), (1, 12, 8), (2, 16, 9)])
+def test_cuda_cube_conv_bf16_pads_channel_counts(cuda, n, cin, cout):
+    """bf16 channel counts that are not multiples of 8 (a ConvLSTM with
+    hidden_size 250 has Cin 1250; hidden_size 63 at input 63, Cin 126 and
+    Cout 252) launch once on zero-padded operands: forward, dx and the
+    train form's dw against the plain version."""
+    x, w, b = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _conv_inputs_h(15, n, 7, cin, cout))
+    before = (cube_conv.launches, cube_conv.dx_launches)
+    got = cube_conv.cube_conv3x3(x, w, b)
+    dx = cube_conv.cube_conv3x3_dx(got, w)
+    assert (cube_conv.launches, cube_conv.dx_launches) == (before[0] + 1, before[1] + 1)
+    assert tuple(got.shape) == (n, 6, 7, 7, cout) and got.is_contiguous()
+    assert tuple(dx.shape) == (n, 6, 7, 7, cin) and dx.is_contiguous()
+    ref = cube_conv.cube_conv3x3_plain(x.float(), w.float(), b.float())
+    ref_dx = cube_conv.cube_conv3x3_dx_plain(got.float(), w.float())
+    torch.cuda.synchronize()
+    assert (got.float() - ref).abs().max().item() <= _tol(ref, torch.bfloat16)
+    assert (dx.float() - ref_dx).abs().max().item() <= _tol(ref_dx, torch.bfloat16)
+    wp = w.float().requires_grad_()
+    xg = x.clone().requires_grad_()
+    out = cube_conv.cube_conv3x3_train(xg, wp, b.float(), w, b)
+    out.float().square().sum().backward()
+    assert tuple(wp.grad.shape) == (3, 3, cin, cout) and tuple(xg.grad.shape) == x.shape
 
 
 def _tol(ref, dtype):
@@ -156,8 +181,6 @@ def test_cuda_cube_conv_dx_rejects_what_the_kernel_does_not_take(cuda):
     _, w, _ = _conv_inputs(9, 1, 12, 8)
     dy = torch.randn(1, 6, 7, 7, 8, device=cuda)
     w = torch.from_numpy(w).to(cuda)
-    with pytest.raises(ValueError):  # bf16 needs Cin % 8 == 0
-        cube_conv.cube_conv3x3_dx(dy.bfloat16(), w.bfloat16())
     with pytest.raises(TypeError):
         cube_conv.cube_conv3x3_dx(dy.half(), w.half())
     with pytest.raises(TypeError):  # mixed dtypes

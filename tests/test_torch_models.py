@@ -192,6 +192,99 @@ def test_clstm_bf16_close_to_jax():
                                atol=0.05, rtol=0.05)
 
 
+@pytest.mark.parametrize("input_size,hidden_size", [(1000, 250), (63, 63)])
+def test_padded_cube_conv_clstm_step_equals_jax(monkeypatch, input_size, hidden_size):
+    """The bf16 kernels take channels in multiples of 8; other counts
+    (hidden_size 250: Cin 1250; hidden_size 63: Cin 126, Cout 252) launch
+    on zero-padded operands and slice the result (ops/cube_conv.py
+    ``padded_forward`` / ``padded_dx``).  Here the padding runs around the
+    plain versions in f32: a ConvLSTM step equals the JAX step (1e-4), and
+    the gradients of the train form equal those without the padding."""
+    from cp360_tpu_torch.ops import cube_conv
+
+    params, seq, h0 = _clstm_case(6, 1, 1, input_size, hidden_size)
+    x = torch.from_numpy(seq)
+    h = torch.from_numpy(h0)
+
+    cell = jax_params.clstm_from_params(params, torch.float32, True, "pallas")
+    with torch.no_grad():
+        plain = clstm_rollout(cell, x, h, h)
+    padded_launches = []
+
+    def fwd(x_, w, b):
+        padded_launches.append(tuple(w.shape[2:]))
+        return cube_conv.padded_forward(cube_conv.cube_conv3x3_plain, x_, w, b)
+
+    monkeypatch.setattr(cube_conv, "cube_conv3x3", fwd)
+    monkeypatch.setattr(cube_conv, "cube_conv3x3_dx",
+                        lambda dy, w: cube_conv.padded_dx(cube_conv.cube_conv3x3_dx_plain, dy, w))
+    with torch.no_grad():
+        hs, _, c = clstm_rollout(cell, x, h, h)
+    assert padded_launches == [(input_size + hidden_size, 4 * hidden_size),
+                               (4 * hidden_size, 4 * hidden_size),
+                               (4 * hidden_size, 4 * hidden_size)]
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jhs, _, jc = jax_clstm_rollout(jp, jnp.asarray(seq), jnp.asarray(h0), jnp.asarray(h0),
+                                   compute_dtype=jnp.float32, conv_impl="xla")
+    np.testing.assert_array_equal(hs.numpy(), plain[0].numpy())
+    np.testing.assert_allclose(hs.numpy(), np.asarray(jhs), atol=1e-4)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), atol=1e-4)
+    if hidden_size == 63:  # the train form: dw and dx through the padding
+        grads = []
+        for patched in (True, False):
+            if not patched:
+                monkeypatch.undo()
+            tcell = jax_params.clstm_from_params(params, torch.float32, True, "pallas")
+            xg = x.clone().requires_grad_()
+            for p in tcell.buffers():
+                p.requires_grad_()
+            hs_, _, _ = clstm_rollout(tcell, xg, h, h)
+            hs_.square().sum().backward()
+            grads.append([xg.grad] + [p.grad for p in tcell.buffers()])
+        for a, b in zip(*grads):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_f32_convs_switch_tf32_off():
+    """An f32 conv switches cuDNN's TF32 off before it launches, and
+    nothing switches it back on (a one-way latch: no race between the
+    server's batcher threads); a bf16 conv leaves the flag alone."""
+    import threading
+
+    from cp360_tpu_torch.models import layers
+
+    was = torch.backends.cudnn.allow_tf32
+    x = torch.randn(2, 5, 5, 4)
+    w = torch.randn(3, 3, 4, 6)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        layers.conv2d(x, w, compute_dtype=torch.bfloat16)
+        assert torch.backends.cudnn.allow_tf32
+        layers.conv2d(x, w)
+        assert not torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True  # a caller's flag, set again
+        after_f32 = []  # the flag as each f32 thread sees it after its conv
+
+        def worker(dtype):
+            for _ in range(20):
+                layers.conv2d(x, w, compute_dtype=dtype)
+                if dtype == torch.float32:
+                    after_f32.append(torch.backends.cudnn.allow_tf32)
+
+        threads = [threading.Thread(target=worker, args=(dt,))
+                   for dt in (torch.float32, torch.bfloat16, torch.float32, torch.bfloat16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert len(after_f32) == 40 and not any(after_f32)
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
 def test_clstm_rejects_unknown_conv_impl():
     params = jax_params.init_clstm_params(0, 4, 4)
     convs = {k: {"w": torch.from_numpy(v["w"]), "b": torch.from_numpy(v["b"])}

@@ -205,9 +205,12 @@ def test_entry_points_need_a_card_or_cpu(resnet_tree):
         serve_cli.main(["--port", "0"])
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_data=2), dict(upload_format="yuv420")])
-def test_unported_serving_options_raise(resnet_tree, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(mesh_data=2), NotImplementedError, 'ROADMAP.md, "parallel"'),
+    (dict(upload_format="yuv422"), ValueError, "upload_format"),  # yuv420 runs
+])
+def test_unported_serving_options_raise(resnet_tree, kw, exc, match):
+    with pytest.raises(exc, match=match):
         SaliencyModel(resnet_tree, _cfg(**kw), device="cpu")
 
 
@@ -238,6 +241,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, f"{path}: imports {name}"
+
+
+def test_refusals_name_their_roadmap_item():
+    """A refusal names the ROADMAP.md item that ports what it refuses
+    ("parallel", "trainer options", ...), never an item number, which a
+    renumbered queue would make wrong."""
+    import re
+
+    numbered = re.compile(r"ROADMAP[^\n]{0,40}(queue|item)s? *\d", re.I)
+    for path in _port_files():
+        text = path.read_text()
+        assert not numbered.search(text), f"{path}: {numbered.search(text).group(0)}"
 
 
 def test_kernel_sources_live_in_the_port():

@@ -670,12 +670,12 @@ def test_cli_needs_a_card_or_cpu(tmp_path):
     ["--profile-dir", "prof"], ["--supervise"],
 ])
 def test_unported_training_options_raise(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md, "(trainer options|parallel)"'):
         train_temporal.main(["--input", str(tmp_path), "--device", "cpu"] + argv)
 
 
 def test_unported_codec_and_backend_raise_in_their_modules():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md, "trainer options"'):
         PrefetchLoader(WindowDataset("/nonexistent", None, [], 5), 1, transfer_codec="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md, "parallel"'):
         checkpoint.make_checkpointer("orbax", "/nonexistent")

@@ -355,23 +355,28 @@ def test_atomic_writes_leave_no_temp(tmp_path):
 # ---- refusals ---------------------------------------------------------------------
 
 
+# optical flow and yuv420 run now: what still refuses is a value the
+# extraction does not know
 @pytest.mark.parametrize("kw,exc", [
-    (dict(opt_flow=True), NotImplementedError),  # with output_motion
-    (dict(host_cube_remap=True, upload_format="yuv420"), NotImplementedError),
+    (dict(opt_flow=True, flow_backend="lucas_kanade"), ValueError),  # with output_motion
+    (dict(host_cube_remap=True, upload_format="yuv422"), ValueError),
     (dict(transfer_codec="auto"), ValueError),
+    (dict(opt_flow=True, flow_link_dtype="bfloat16"), ValueError),
 ])
 def test_extract_refusals(resnet_tree, tmp_path, kw, exc):
     model = jax_params.resnet_from_params(resnet_tree, compute_dtype=torch.float32)
-    with pytest.raises(exc, match="ROADMAP|transfer_codec"):
+    with pytest.raises(exc, match="flow backend|upload_format|transfer_codec|flow_link_dtype"):
         extract.extract_frames(model, _small_cfg(**kw), iter(_bgr_frames(2)),
                                str(tmp_path), output_motion=True)
 
 
+# unported options raise by the name of the ROADMAP.md item that ports them
 @pytest.mark.parametrize("cli,argv,exc", [
-    ("extract_features", ["-om", "--device", "cpu"], NotImplementedError),
+    ("extract_features", ["-om", "--set", "flow_backend=lucas_kanade", "--device", "cpu"],
+     ValueError),
     ("extract_features", ["--set", "opt_flow=false", "--set", "host_cube_remap=true",
-                          "--set", "upload_format=yuv420", "--device", "cpu"],
-     NotImplementedError),
+                          "--set", "upload_format=yuv422", "--device", "cpu"],
+     ValueError),
     ("extract_features", ["--set", "transfer_codec=auto", "--device", "cpu"], ValueError),
     ("extract_features", ["--data-parallel", "2", "--device", "cpu"], NotImplementedError),
     ("extract_features", ["--supervise", "--device", "cpu"], NotImplementedError),
@@ -388,7 +393,9 @@ def test_cli_refusals(tmp_path, monkeypatch, cli, argv, exc):
 
     monkeypatch.chdir(tmp_path)  # no ./config.yaml: built-in defaults
     mod = importlib.import_module(f"cp360_tpu_torch.cli.{cli}")
-    with pytest.raises(exc, match="ROADMAP|transfer_codec"):
+    items = '"trainer options" and "parallel"|"resnet18/34/101/152" and "vgg16-bn'
+    with pytest.raises(exc, match=f"ROADMAP.md, ({items})|flow backend|upload_format|"
+                                  "transfer_codec"):
         mod.main(argv)
 
 
