@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py              # every phase (what a chip check runs)
     python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --phases options,stream
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -72,7 +73,36 @@ Phases, in order; any failure exits non-zero before the result lines:
    tensor's largest, updated weights within 0.2 lr where the gradient's
    sign is well defined (|g| > 1e-4 max|g|) and within 2 lr everywhere.
 
-5. video: the offline pipeline at full width (ResNet-50, 1000 classes,
+5. options: the trainer's options at full width (ConvLSTM 1000/1000, bf16
+   convs, flow_h 480, seeded weights and artifacts).
+   - One Adam step on 2 segments of G = 4 windows (batch 8) against the
+     step on the 8 windows they expand to: the same K1 and dx shapes, so
+     the same bits.  The direct step repeats first; if it does not repeat
+     bit for bit, the three steps run again under
+     ``torch.use_deterministic_algorithms`` and must be bit-equal there.
+   - The int8 loader codec on one full-width window: the loader ships
+     int8 CAMs with f32 scales and f16 flows, and the loss of that batch
+     against the plain batch, forward only, in f32, lies within 2e-4 of
+     the gap the JAX package shows on the CPU (``tools/int8_loss_gap.py``:
+     1.81e-3 relative) on either side; bf16 printed.
+   - ``cli.train_temporal`` on 2 train_60 videos of 9 frames (one segment
+     of 4 windows each) with every option at once: ``segment_windows=4``
+     at batch 8, ``transfer_codec=int8``, ``--profile-dir`` (one Chrome
+     trace that names K1) and 2 epochs of one step with
+     ``eval_every_epochs=1``, ``eval_patience=1`` and seeded GT (``val``
+     records, ``best.npz``, ``best_val.json``); 15 K1 and 14 dx launches a
+     step, 30 K1 a validation pass.
+   - ``run_validation`` at ConvLSTM 64/64 in f32 on the card and on the
+     CPU: AUC within 1e-6.
+   - ``cli.train_temporal --supervise`` as a subprocess, in that run's
+     checkpoint directory with 3 epochs: rc 0, and the child resumes that
+     train state (the implied ``--resume``) and trains epoch 2 only, one
+     step.
+   - then, outside the counted runs: the step time at 8 windows from the
+     host batch (its copy to the card included) for the direct, segment,
+     int8 and segment + int8 forms.
+
+6. video: the offline pipeline at full width (ResNet-50, 1000 classes,
    960x1920 frames, 224 faces, ConvLSTM 1000/1000, seq_len 5, bf16,
    ``host_cube_remap: false``, seeded weights).
    - ``extract_frames`` on two test_25 videos of 24 seeded frames with
@@ -110,8 +140,26 @@ Phases, in order; any failure exits non-zero before the result lines:
      pairs of 480x960 with a profile of a Horn-Schunck solve, and a profile
      of a 16-frame stage-1 step with K3's row.
 
-The last lines are ``{"kernels": [...]}``, the ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+7. stream: ``pipelines/stream.py`` and ``cli/stream_saliency.py`` at full
+   width.
+   - ``stream_video_saliency`` on ``tests/golden/e2e_full``'s mp4s with the
+     golden's weights, f32: equal to ``cli.extract_features`` (host remap,
+     f16 feats, batches of 8) -> ``cli.test_temporal`` id for id within
+     1e-4 (absolute and relative), with one extra final window per video;
+     then bf16, printed against f32.  Each run: one K3 launch per stage-1
+     batch, 15 K1 per window batch, no K2.
+   - ``cli.stream_saliency`` on a seeded 64-frame 960x1920 mp4v video
+     (bf16), then cut after 23 maps and run again with ``--resume``: the
+     suffix bit for bit.
+   - then, outside the counted runs: stream frames/s on that video (host
+     clock, median of 3) and a profile of a 17-frame stream (two stage-1
+     batches) with the device's idle share.
+
+Every phase counts its paths one way, ``counted_run``: each kernel's count
+is set to 0 just before a run and read just after, and a phase reports the
+sum over its runs.  The last lines are ``{"kernels": [...]}``, the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.  TF32 is switched off throughout, so every f32 product on the card
 is a true f32 product.
@@ -176,6 +224,23 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 
 
 # ---- phase 1: build ----------------------------------------------------------
+
+
+def counted_run(totals: dict, fn):
+    """Run ``fn`` with every kernel's count set to 0 just before it and read
+    just after (the one way the phases count a path); adds the counts to
+    ``totals`` and returns (result, counts)."""
+    from cp360_tpu_torch.ops import cube_conv, cube_pool, equi_gather
+
+    cube_conv.launches = cube_conv.dx_launches = equi_gather.launches = 0
+    cube_pool.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {"cube_conv3x3": cube_conv.launches, "cube_conv3x3_dx": cube_conv.dx_launches,
+           "equi_to_cube": equi_gather.launches, "cube_pool3x3s2": cube_pool.launches}
+    for k, v in got.items():
+        totals[k] = totals.get(k, 0) + v
+    return out, got
 
 
 def phase_build() -> None:
@@ -269,10 +334,13 @@ def check_padded_train(n: int, cin: int, cout: int, gen) -> dict:
     wc, bc = w.bfloat16(), b.bfloat16()
     dy = torch.randn(n, 6, 7, 7, cout, generator=gen, device=dev).to(torch.bfloat16)
     xg, wp, bp = x.clone().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()
-    k0 = (cube_conv.launches, cube_conv.dx_launches)
-    out = cube_conv.cube_conv3x3_train(xg, wp, bp, wc, bc)
-    out.backward(dy)
-    launched = (cube_conv.launches - k0[0], cube_conv.dx_launches - k0[1])
+    def fwd_bwd():
+        y = cube_conv.cube_conv3x3_train(xg, wp, bp, wc, bc)
+        y.backward(dy)
+        return y
+
+    out, got = counted_run({}, fwd_bwd)
+    launched = (got["cube_conv3x3"], got["cube_conv3x3_dx"])
     xf, wf, bf = (t.float().requires_grad_() for t in (x, wc, bc))
     ref = cube_conv.cube_conv3x3_plain(xf, wf, bf)
     ref.backward(dy.float())
@@ -523,7 +591,6 @@ def phase_kernels() -> dict:
 def phase_slice() -> dict:
     from cp360_tpu_torch.compat import jax_params
     from cp360_tpu_torch.config import Config
-    from cp360_tpu_torch.ops import cube_conv, cube_pool, equi_gather
     from cp360_tpu_torch.pipelines.extract import stage1_batch
     from cp360_tpu_torch.pipelines.temporal import window_infer
     from cp360_tpu_torch.serving.server import SaliencyModel
@@ -570,21 +637,20 @@ def phase_slice() -> dict:
         model.temporal_close(sid)
         return out
 
+    def serve():
+        with ThreadPoolExecutor(max_workers=6) as pool:
+            sess_futs = [pool.submit(run_session, s) for s in sessions]
+            pred_futs = [pool.submit(predict, f) for f in frames + frames]
+            return [f.result() for f in pred_futs], [f.result() for f in sess_futs]
+
     stage1_b0 = model._batcher.stats["batches"]
     temporal_b0 = model._temporal_batcher.stats["batches"]
-    cube_conv.launches = 0
-    equi_gather.launches = 0
-    cube_pool.launches = 0
+    counted: dict = {}
     t0 = time.monotonic()
-    with ThreadPoolExecutor(max_workers=6) as pool:
-        sess_futs = [pool.submit(run_session, s) for s in sessions]
-        pred_futs = [pool.submit(predict, f) for f in frames + frames]
-        preds = [f.result() for f in pred_futs]
-        sess_out = [f.result() for f in sess_futs]
-    torch.cuda.synchronize()
+    (preds, sess_out), _ = counted_run(counted, serve)
     wall = time.monotonic() - t0
-    k1_launches, k2_launches = cube_conv.launches, equi_gather.launches
-    k3_launches = cube_pool.launches
+    k1_launches, k2_launches = counted["cube_conv3x3"], counted["equi_to_cube"]
+    k3_launches = counted["cube_pool3x3s2"]
     stage1_batches = model._batcher.stats["batches"] - stage1_b0
     temporal_batches = model._temporal_batcher.stats["batches"] - temporal_b0
 
@@ -606,8 +672,9 @@ def phase_slice() -> dict:
     print(f"slice: {len(preds)} predicts + {sum(len(s) for s in sessions)} "
           f"temporal pushes; stage-1 batches {stage1_batches}, window batches "
           f"{temporal_batches}; K1 launches {k1_launches}, K2 launches "
-          f"{k2_launches}, K3 launches {k3_launches}", flush=True)
-    if k1_launches == 0 or k2_launches == 0 or k3_launches == 0:
+          f"{k2_launches}, K3 launches {k3_launches}, dx launches "
+          f"{counted['cube_conv3x3_dx']}", flush=True)
+    if k1_launches == 0 or k2_launches == 0 or k3_launches == 0 or counted["cube_conv3x3_dx"]:
         fail("a kernel of the path was never launched")
     if k1_launches != 3 * cfg.seq_len * temporal_batches:
         fail(f"K1 launched {k1_launches} times for {temporal_batches} window batches")
@@ -684,8 +751,7 @@ def phase_slice() -> dict:
         print(f"slice: {name} profile {json.dumps(profile_step(fn))}", flush=True)
     print(f"slice: device steps {json.dumps(steps)}", flush=True)
     model.close()
-    return {"cube_conv3x3": k1_launches, "equi_to_cube": k2_launches,
-            "cube_pool3x3s2": k3_launches}
+    return counted
 
 
 # ---- phase 4: the training step ----------------------------------------------
@@ -758,7 +824,6 @@ def phase_train() -> dict:
     from cp360_tpu_torch.cli import train_temporal
     from cp360_tpu_torch.compat.jax_params import init_clstm_params, load_npz
     from cp360_tpu_torch.config import Config
-    from cp360_tpu_torch.ops import cube_conv
     from cp360_tpu_torch.train import loop
 
     build = ROOT / "build"
@@ -774,13 +839,11 @@ def phase_train() -> dict:
                 "--metrics-jsonl", str(metrics), "--set", f"checkpoint_path={tmp / 'ck'}",
                 "--set", "epochs=1", "--set", "summary_freq=1",
                 "--set", "clstm_conv_impl=pallas"]
-        cube_conv.launches = 0
-        cube_conv.dx_launches = 0
+        counted: dict = {}
         t0 = time.monotonic()
-        trained = train_temporal.main(argv)
-        torch.cuda.synchronize()
+        trained, _ = counted_run(counted, lambda: train_temporal.main(argv))
         wall = time.monotonic() - t0
-        k1, dx = cube_conv.launches, cube_conv.dx_launches
+        k1, dx = counted["cube_conv3x3"], counted["cube_conv3x3_dx"]
 
         recs = [json.loads(line) for line in metrics.read_text().splitlines()]
         steps = len(recs)
@@ -791,8 +854,10 @@ def phase_train() -> dict:
             fail(f"expected {n_windows} (>= 3) logged steps at batch 1, got {steps}")
         if not all(np.isfinite(r["loss_avg"]) for r in recs):
             fail(f"non-finite training loss: {recs}")
-        if k1 != 15 * steps or dx != 14 * steps:
-            fail(f"per step K1 ran {k1 / steps}, dx {dx / steps} times (want 15, 14)")
+        if k1 != 15 * steps or dx != 14 * steps or counted["equi_to_cube"] \
+                or counted["cube_pool3x3s2"]:
+            fail(f"per step K1 ran {k1 / steps}, dx {dx / steps} times (want 15, 14); "
+                 f"launches {counted}")
         cfg = Config()
         ckdir = tmp / "ck" / Path(loop.checkpoint_dir(cfg)).name
         saved = load_npz(str(ckdir / "epoch_00.npz"))
@@ -840,10 +905,339 @@ def phase_train() -> dict:
     print(f"train: f32 card vs CPU {json.dumps(par)}", flush=True)
     if not par["passed"]:
         fail(f"f32 train step on the card differs from the CPU: {par}")
-    return {"cube_conv3x3": k1, "cube_conv3x3_dx": dx}
+    return counted
 
 
-# ---- phase 5: the offline video pipeline ---------------------------------------
+# ---- phase 5: the trainer's options -------------------------------------------
+
+# the int8 loader codec's relative loss gap on int8_gap_window in the JAX
+# package, f32 on the CPU (tools/int8_loss_gap.py: losses 58.4737548828125
+# plain, 58.57939147949219 int8); the card's f32 gap must lie within
+# INT8_GAP_MARGIN of it on either side (a codec that skipped quantizing
+# would show a gap of 0): each of its two losses may lie 1e-4 relative
+# from the CPU's, the f32 agreement the train phase requires
+# (f32_card_vs_cpu)
+INT8_GAP_JAX = 1.8065642764244275e-3
+INT8_GAP_MARGIN = 2e-4
+VAL_AUC_TOL = 1e-6  # validation on the card vs the CPU, ConvLSTM 64/64 f32
+
+
+def int8_gap_window(seed: int = 13):
+    """One seeded full-width window, as tools/int8_loss_gap.py builds it:
+    CAM cubes [1, 5, 6, 7, 7, 1000] f16 (the artifacts' dtype), flows
+    [1, 5, 480, 960, 2] f32."""
+    rng = np.random.RandomState(seed)
+    seq = rng.gamma(0.5, 2.0, (1, 5, 6, 7, 7, 1000)).astype(np.float16)
+    flows = (rng.standard_normal((1, 5, 480, 960, 2)) * 2.0).astype(np.float32)
+    return seq, flows
+
+
+def max_bits_diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over two dicts of f32 arrays (0.0 when bit-equal)."""
+    return max(float(np.abs(a[n].astype(np.float64) - b[n]).max()) for n in a)
+
+
+def trees_equal(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[n].view(np.uint32), b[n].view(np.uint32)) for n in a)
+
+
+def segment_step_bits(params: dict, gen) -> dict:
+    """One full-width Adam step (bf16, batch 8) on 2 segments of G = 4
+    windows against the step on the 8 windows they expand to, built here
+    by indexing: the same K1 and dx shapes, so the same bits, compared on
+    the loss, every gradient and every updated weight (Adam's first update
+    is about -lr sign(g), so the weights alone would hide a gradient
+    difference).  The direct step runs twice first: if it does not repeat
+    bit for bit, the three steps run again under
+    ``torch.use_deterministic_algorithms``."""
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.train import loop
+
+    cfg = Config(batch_size=8, clstm_conv_impl="pallas")
+    seg = torch.rand(2, 8, 6, 7, 7, 1000, generator=gen, device="cuda").half()
+    seg_flows = torch.randn(2, 8, 480, 960, 2, generator=gen, device="cuda") * 2.0
+    direct = torch.stack([seg[s, k:k + 5] for s in range(2) for k in range(4)])
+    direct_flows = torch.stack([seg_flows[s, k:k + 5] for s in range(2) for k in range(4)])
+
+    def step(c, seq, flows):
+        model = loop.trainable_clstm(c, params, "cuda")
+        m = loop.make_train_step(c, model, loop.make_optimizer(c, model))(seq, flows)
+        out = {}
+        for name, p in model.named_parameters():
+            out[name] = p.detach().cpu().numpy()
+            out[f"{name}.grad"] = p.grad.detach().cpu().numpy()
+        del model
+        return float(m["loss"]), out
+
+    def three():
+        (l1, d1), (l2, d2) = step(cfg, direct, direct_flows), step(cfg, direct, direct_flows)
+        ls, s1 = step(cfg.replace(segment_windows=4), seg, seg_flows)
+        return {"direct_repeat_bit_equal": trees_equal(d1, d2) and l1 == l2,
+                "direct_repeat_max_diff": max_bits_diff(d1, d2),
+                "segment_bit_equal": trees_equal(s1, d1) and ls == l1,
+                "segment_max_diff": max_bits_diff(s1, d1), "loss": l1, "segment_loss": ls}
+
+    res = {"default": three()}
+    if not res["default"]["direct_repeat_bit_equal"]:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            res["deterministic_algorithms"] = three()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return res
+
+
+def train_forms_timing(params: dict) -> dict:
+    """Full-width train step time at batch 8 windows (bf16), from the host
+    numpy batch the loader yields to the updated weights: the copy to the
+    card included, since what segments and the int8 codec change is the
+    bytes that cross.  Four forms of the same 8 windows: direct (f16 CAMs,
+    f32 flows), 2 segments of 4, int8 (int8 CAMs + f32 scales, f16 flows)
+    and both.  Host clock between two synchronizes, the mean of 2 steps
+    after 1 warm-up step; the forms step one model in turn (the weights'
+    values do not change the work)."""
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.ops.quantize import Quantized, quantize_cam_np
+    from cp360_tpu_torch.train import loop
+
+    rng = np.random.RandomState(SEED + 16)
+    seg = rng.gamma(0.5, 2.0, (2, 8, 6, 7, 7, 1000)).astype(np.float16)
+    seg_flows = (rng.standard_normal((2, 8, 480, 960, 2)) * 2.0).astype(np.float32)
+    direct = np.stack([seg[s, k:k + 5] for s in range(2) for k in range(4)])
+    direct_flows = np.stack([seg_flows[s, k:k + 5] for s in range(2) for k in range(4)])
+
+    def int8(seq, flows):
+        return Quantized(*quantize_cam_np(seq)), flows.astype(np.float16)
+
+    def nbytes(a):
+        return sum(x.nbytes for x in a) if isinstance(a, Quantized) else a.nbytes
+
+    forms = {"direct": (1, (direct, direct_flows)), "segments": (4, (seg, seg_flows)),
+             "int8": (1, int8(direct, direct_flows)), "segments_int8": (4, int8(seg, seg_flows))}
+    dev = torch.device("cuda")
+    cfg = Config(batch_size=8, clstm_conv_impl="pallas")
+    model = loop.trainable_clstm(cfg, params, dev)
+    opt = loop.make_optimizer(cfg, model)
+    res = {}
+    for name, (group, (seq, flows)) in forms.items():
+        step = loop.make_train_step(cfg.replace(segment_windows=group), model, opt)
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            step(loop.batch_to_device(seq, dev), loop.batch_to_device(flows, dev))
+            torch.cuda.synchronize()
+            if i >= 1:
+                times.append(1e3 * (time.monotonic() - t))
+        res[name] = {"step_ms": float(np.mean(times)), "step_ms_all": times,
+                     "batch_mb": (nbytes(seq) + nbytes(flows)) / 1e6}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def int8_loss_gap(params: dict) -> dict:
+    """The loss of int8_gap_window as the plain loader ships it (f16 CAMs,
+    f32 flows) and as the int8 loader ships it (int8 CAMs with f32 scales,
+    f16 flows), forward only, in f32 (TF32 off) and in bf16."""
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.data.dataset import PrefetchLoader
+    from cp360_tpu_torch.ops.quantize import Quantized
+    from cp360_tpu_torch.train import loop
+
+    seq, flows = int8_gap_window()
+
+    class One:  # the loader's codec on this one batch
+        def get_batch(self, idxs, n_threads=0):
+            return seq, flows
+
+    q_seq, q_flows = PrefetchLoader(One(), 1, transfer_codec="int8").load_batch([0])
+    shipped = {"seq": type(q_seq).__name__,
+               "dtypes": [str(a.dtype) for a in (*q_seq, q_flows)]}
+    if not isinstance(q_seq, Quantized) or shipped["dtypes"] != ["int8", "float32", "float16"] \
+            or q_seq.q.shape != seq.shape or q_flows.shape != flows.shape:
+        fail(f"the int8 loader shipped {shipped}, shapes {q_seq[0].shape}, {q_flows.shape}: "
+             "want Quantized int8 CAMs with f32 scales and f16 flows")
+    dev = torch.device("cuda")
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = Config(compute_dtype=dtype, clstm_conv_impl="pallas")
+        model = loop.trainable_clstm(cfg, params, dev)
+        loss_fn = loop.make_loss_fn(cfg, model)
+        with torch.no_grad():
+            none = float(loss_fn(loop.batch_to_device(seq, dev), loop.batch_to_device(flows, dev))[0])
+            int8 = float(loss_fn(loop.batch_to_device(q_seq, dev),
+                                 loop.batch_to_device(q_flows, dev))[0])
+        res[dtype] = {"loss_none": none, "loss_int8": int8, "rel_gap": abs(int8 - none) / abs(none)}
+        del model
+    res["shipped"] = shipped
+    return res
+
+
+def validation_card_vs_cpu(root: Path) -> dict:
+    """``run_validation`` at ConvLSTM 64/64 in f32 on the card and on the
+    CPU, from the same params, artifacts and GT (and so the same metric RNG
+    stream): the aggregate within VAL_AUC_TOL."""
+    from cp360_tpu_torch.compat.jax_params import init_clstm_params
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.train.validate import run_validation
+
+    rng = np.random.RandomState(SEED + 11)
+    for vid in ("vid_a", "vid_b"):
+        (root / "art" / vid / "cube_feat").mkdir(parents=True)
+        for i in range(2, 2 + 12):
+            np.save(root / "art" / vid / "cube_feat" / f"{i:06}.npy",
+                    rng.gamma(0.5, 2.0, (6, 64, 7, 7)).astype(np.float16))
+        synthetic_gt(root / "gt", vid, range(4, 11), rng)
+    cfg = Config(input_size=64, hidden_size=64, compute_dtype="float32", eval_every_epochs=1,
+                 eval_dir=str(root / "art"), label_path=str(root / "gt"), eval_batch_windows=4)
+    params = init_clstm_params(SEED + 12, 64, 64)
+    card = run_validation(params, cfg, device="cuda", log_fn=lambda *a: None)
+    cpu = run_validation(params, cfg, device="cpu", log_fn=lambda *a: None)
+    res = {"card": card, "cpu": cpu,
+           "max_metric_diff": max(abs(card[k] - cpu[k]) for k in ("AUC", "AUCB", "CC", "SIM"))}
+    res["passed"] = bool(abs(card["AUC"] - cpu["AUC"]) <= VAL_AUC_TOL
+                         and card["windows"] == cpu["windows"] == 14)
+    return res
+
+
+def phase_options() -> dict:
+    """The trainer's options at full width (ConvLSTM 1000/1000, bf16 convs,
+    flow_h 480) on seeded synthetic artifacts: segment windows, the int8
+    loader codec, in-training validation, a profile and supervision."""
+    from cp360_tpu_torch.cli import train_temporal
+    from cp360_tpu_torch.compat.jax_params import init_clstm_params
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.data.dataset import builtin_split
+    from cp360_tpu_torch.train import loop
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_options_", dir=build))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    stats = {"card": gpu_line()}
+    counted: dict = {}
+
+    def count(fn):
+        return counted_run(counted, fn)
+
+    try:
+        params = init_clstm_params(0, 1000, 1000)
+        # -- one step on 2 segments of 4 windows vs the 8 windows directly
+        t0 = time.monotonic()
+        bits, got = count(lambda: segment_step_bits(params, gen))
+        print(f"options: segment step (2 segments of G=4, batch 8) vs the direct step on its 8 "
+              f"windows in {time.monotonic() - t0:.1f} s: {json.dumps(bits)}; launches {got}",
+              flush=True)
+        final = bits.get("deterministic_algorithms", bits["default"])
+        steps = 3 * (2 if "deterministic_algorithms" in bits else 1)
+        if not (final["segment_bit_equal"] and final["direct_repeat_bit_equal"]) \
+                or got["cube_conv3x3"] != 15 * steps or got["cube_conv3x3_dx"] != 14 * steps:
+            fail(f"the segment step is not the direct step bit for bit: {bits}, launches {got}")
+        stats["segment_step"] = bits
+
+        # -- the int8 codec: one window's loss, int8 against the plain batch
+        gap, got = count(lambda: int8_loss_gap(params))
+        off = abs(gap["float32"]["rel_gap"] - INT8_GAP_JAX)
+        print(f"options: int8 loader codec, one full-width window, loss gap to the plain batch "
+              f"{json.dumps(gap)}; f32 gap {INT8_GAP_JAX} +- {INT8_GAP_MARGIN} (JAX on the CPU, "
+              f"tools/int8_loss_gap.py), off by {off}; launches {got}", flush=True)
+        if not off <= INT8_GAP_MARGIN or got["cube_conv3x3"] != 4 * 15:
+            fail(f"int8 codec f32 loss gap {gap['float32']['rel_gap']} is not within "
+                 f"{INT8_GAP_MARGIN} of JAX's {INT8_GAP_JAX}")
+        stats["int8_loss_gap"] = gap
+
+        # -- the CLI with every option at once: 2 epochs of one step, each
+        # on 2 segments of G = 4 (batch 8) through the int8 codec, under
+        # --profile-dir, validated after each epoch against seeded GT, on 2
+        # train_60 videos of 9 frames (4 windows, one segment each)
+        art = tmp / "art"
+        n_windows = write_artifacts(art, n_frames=9)
+        gt_rng = np.random.RandomState(SEED + 14)
+        for vid in builtin_split("train_60")[:2]:
+            synthetic_gt(tmp / "gt", vid, range(4, 8), gt_rng)
+        options = ["--set", "segment_windows=4", "--set", "transfer_codec=int8",
+                   "--set", "batch_size=8", "--set", "summary_freq=1",
+                   "--set", "clstm_conv_impl=pallas"]
+        prof_dir, metrics = tmp / "prof", tmp / "train.jsonl"
+        argv = ["--input", str(art), "--device", "cuda", "--metrics-jsonl", str(metrics),
+                "--set", f"checkpoint_path={tmp / 'ck'}", "--set", "epochs=2", *options,
+                "--profile-dir", str(prof_dir), "--set", "eval_every_epochs=1",
+                "--set", "eval_patience=1", "--set", f"eval_dir={art}",
+                "--set", f"label_path={tmp / 'gt'}", "--set", "eval_batch_windows=4"]
+        t0 = time.monotonic()
+        _, got = count(lambda: train_temporal.main(argv))
+        wall = time.monotonic() - t0
+        recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+        train = [r for r in recs if r["event"] == "train"]
+        vals = [r for r in recs if r["event"] == "val"]
+        print(f"options: train_temporal {' '.join(argv[6:])}: {len(train)} steps in {wall:.1f} s "
+              f"(checkpoints and validation included), losses "
+              f"{[r['loss_avg'] for r in train]}; launches {got}", flush=True)
+        # 15 K1 and 14 dx a step; a validation pass is 2 window batches
+        # (one a video at eval_batch_windows 4) of 15 K1 each
+        if [r["epoch"] for r in train] != [0, 1] \
+                or not all(np.isfinite(r["loss_avg"]) for r in train) \
+                or got["cube_conv3x3"] != 15 * len(train) + 30 * len(vals) \
+                or got["cube_conv3x3_dx"] != 14 * len(train):
+            fail(f"train_temporal with segments, int8, validation and a profile: {recs}, "
+                 f"launches {got}")
+        traces = sorted(prof_dir.glob("*.json"))
+        names_k1 = bool(traces) and "cube_conv3x3" in traces[0].read_text()
+        print(f"options: --profile-dir wrote {[t.name for t in traces]} "
+              f"({sum(t.stat().st_size for t in traces)} bytes); names K1: {names_k1}", flush=True)
+        if len(traces) != 1 or not names_k1:
+            fail(f"--profile-dir wrote {traces}, naming K1: {names_k1}")
+        ckdir = tmp / "ck" / Path(loop.checkpoint_dir(Config())).name
+        print(f"options: validation records {json.dumps(vals)}; best.npz "
+              f"{(ckdir / 'best.npz').exists()}, early stop "
+              f"{[r for r in recs if r['event'] == 'train_early_stop']}", flush=True)
+        stats["val_seconds"] = [v["seconds"] for v in vals]
+        if len(vals) != 2 or not vals[0]["best"] or vals[0]["windows"] != n_windows \
+                or not (ckdir / "best.npz").exists() or not (ckdir / "best_val.json").exists():
+            fail(f"validation in training: {vals}")
+
+        # -- validation on the card against the CPU, ConvLSTM 64/64 f32
+        val, _ = count(lambda: validation_card_vs_cpu(tmp / "val64"))
+        print(f"options: run_validation card vs CPU, ConvLSTM 64/64 f32: {json.dumps(val)} "
+              f"(AUC limit {VAL_AUC_TOL})", flush=True)
+        if not val["passed"]:
+            fail(f"validation on the card differs from the CPU: {val}")
+
+        # -- step times of the four batch forms, outside the counted runs
+        stats["train_forms_b8"] = train_forms_timing(params)
+        print(f"options: full-width step at 8 windows from the host batch, by form "
+              f"{json.dumps(stats['train_forms_b8'])}", flush=True)
+
+        # -- --supervise: the CLI as a supervised child process, in the
+        # checkpoint directory of the run above (2 epochs done) with
+        # epochs=3: the child must resume that train state and train epoch
+        # 2 only (one step), which only the implied --resume does
+        metrics = tmp / "sup.jsonl"
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cp360_tpu_torch.cli.train_temporal", "--supervise", "600",
+             "--input", str(art), "--device", "cuda", "--metrics-jsonl", str(metrics),
+             "--set", f"checkpoint_path={tmp / 'ck'}", "--set", "epochs=3", *options],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+        recs = [json.loads(line) for line in metrics.read_text().splitlines()] \
+            if metrics.exists() else []
+        resumed = "resumed full train state" in proc.stdout
+        print(f"options: train_temporal --supervise as a subprocess: rc {proc.returncode} in "
+              f"{time.monotonic() - t0:.1f} s, epochs {[r['epoch'] for r in recs]} trained, "
+              f"resumed the run's train state: {resumed}", flush=True)
+        if proc.returncode != 0 or not resumed or [r["epoch"] for r in recs] != [2]:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+            fail(f"supervised training: rc {proc.returncode}, records {recs}")
+        stats["supervised_s"] = time.monotonic() - t0
+        print(f"options: {json.dumps(stats)}", flush=True)
+        return counted
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- phase 6: the offline video pipeline ---------------------------------------
 
 GOLDEN_CONFIG = """\
 data_vid_path: {root}/dataset
@@ -949,27 +1343,25 @@ def parse_result(text: str):
 
 
 def run_test_temporal(root: Path, model: Path, art_dir: Path, config: Path, seed: int,
-                      *extra: str):
+                      *extra: str, totals: dict):
     """``cli.test_temporal.main`` on the card, from ``root``, after
-    np.random.seed(seed); returns (result (CC, AUC, AUCB), host seconds,
-    K1 launches)."""
+    np.random.seed(seed), as a counted run added to ``totals``; returns
+    (result (CC, AUC, AUCB), host seconds, K1 launches)."""
     from cp360_tpu_torch.cli import test_temporal
-    from cp360_tpu_torch.ops import cube_conv
 
     cwd = Path.cwd()
     os.chdir(root)
     np.random.seed(seed)
-    k1 = cube_conv.launches
     try:
         t0 = time.monotonic()
-        test_temporal.main(["--device", "cuda", "--model", str(model), "--dir", str(art_dir),
-                            "--config", str(config), *extra])
-        torch.cuda.synchronize()
+        _, got = counted_run(totals, lambda: test_temporal.main(
+            ["--device", "cuda", "--model", str(model), "--dir", str(art_dir),
+             "--config", str(config), *extra]))
         wall = time.monotonic() - t0
         result = parse_result((root / f"{art_dir.name}_result.txt").read_text())
     finally:
         os.chdir(cwd)
-    return result, wall, cube_conv.launches - k1
+    return result, wall, got["cube_conv3x3"]
 
 
 def window_batches(art_dir: Path, vids, seq_len: int, batch_windows: int) -> int:
@@ -1097,16 +1489,15 @@ def flow_speed() -> dict:
     return stats
 
 
-def train_on_port_motion(model, root: Path) -> dict:
+def train_on_port_motion(model, root: Path, totals: dict) -> None:
     """Video to trained weights with no artifact from the JAX package:
     ``extract_frames`` with -of -om writes a train_60 video's CAM cubes and
     Horn-Schunck motion at full width (8 frames of a texture moving 6 px a
     frame: 7 artifacts, 2 windows), then ``cli.train_temporal`` trains 2
-    steps on them.  Returns the launches of both runs."""
+    steps on them; both are counted runs added to ``totals``."""
     from cp360_tpu_torch.cli import train_temporal
     from cp360_tpu_torch.config import Config
     from cp360_tpu_torch.data.dataset import builtin_split
-    from cp360_tpu_torch.ops import cube_conv, cube_pool, equi_gather
     from cp360_tpu_torch.pipelines.extract import extract_frames
 
     vid = builtin_split("train_60")[0]
@@ -1115,9 +1506,9 @@ def train_on_port_motion(model, root: Path) -> dict:
     cfg = Config(cube_dim=224, equi_h=1920, equi_w=960, compute_dtype="bfloat16",
                  host_cube_remap=False, extract_batch=16, opt_flow=True,
                  flow_backend="horn_schunck", feat_dtype="float16")
-    k0 = (cube_conv.launches, cube_conv.dx_launches, equi_gather.launches, cube_pool.launches)
-    n = extract_frames(model, cfg, frames, str(root / "art" / vid), output_img=False,
-                       output_feature=True, output_motion=True)
+    n, _ = counted_run(totals, lambda: extract_frames(
+        model, cfg, frames, str(root / "art" / vid), output_img=False, output_feature=True,
+        output_motion=True))
     motion = sorted(os.listdir(root / "art" / vid / "motion"))
     flow = np.load(root / "art" / vid / "motion" / motion[-1])
     print(f"video: -om extraction of {vid}: {n} artifacts, motion {motion[0]}..{motion[-1]}, "
@@ -1127,23 +1518,17 @@ def train_on_port_motion(model, root: Path) -> dict:
             or flow.shape != (480, 960, 2) or flow.dtype != np.float32:
         fail("extraction with -om wrote the wrong motion artifacts")
     metrics = root / "metrics.jsonl"
-    k1 = (cube_conv.launches, cube_conv.dx_launches)
-    train_temporal.main(["--input", str(root / "art"), "--device", "cuda",
-                         "--metrics-jsonl", str(metrics), "--set", f"checkpoint_path={root / 'ck'}",
-                         "--set", "epochs=1", "--set", "summary_freq=1",
-                         "--set", "clstm_conv_impl=pallas"])
-    torch.cuda.synchronize()
+    _, got = counted_run(totals, lambda: train_temporal.main(
+        ["--input", str(root / "art"), "--device", "cuda", "--metrics-jsonl", str(metrics),
+         "--set", f"checkpoint_path={root / 'ck'}", "--set", "epochs=1",
+         "--set", "summary_freq=1", "--set", "clstm_conv_impl=pallas"]))
     recs = [json.loads(line) for line in metrics.read_text().splitlines()]
-    k1 = (cube_conv.launches - k1[0], cube_conv.dx_launches - k1[1])
+    k1 = (got["cube_conv3x3"], got["cube_conv3x3_dx"])
     print(f"video: train_temporal on the port's own motion: {len(recs)} steps, losses "
           f"{[r['loss_avg'] for r in recs]}; K1 {k1[0]}, dx {k1[1]} launches", flush=True)
     if len(recs) != 2 or not all(np.isfinite(r["loss_avg"]) for r in recs) \
             or k1 != (30, 28):
         fail(f"training on port-made motion: {len(recs)} steps, K1/dx {k1}")
-    return {"cube_conv3x3": cube_conv.launches - k0[0],
-            "cube_conv3x3_dx": cube_conv.dx_launches - k0[1],
-            "equi_to_cube": equi_gather.launches - k0[2],
-            "cube_pool3x3s2": cube_pool.launches - k0[3]}
 
 
 def yuv_close(a: np.ndarray, b: np.ndarray):
@@ -1154,35 +1539,37 @@ def yuv_close(a: np.ndarray, b: np.ndarray):
     return rel, corr, rel < 0.08 and corr > 0.998
 
 
-def serve_yuv420() -> dict:
+def serve_yuv420(totals: dict) -> None:
     """``SaliencyModel`` at full width with ``host_cube_remap: true``, f32,
     serving one natural-spectrum frame as rgb8 and as yuv420: within the
-    JAX package's bound (tests/test_serving.py:526-547).  K3 runs on both."""
+    JAX package's bound (tests/test_serving.py:526-547).  K3 runs on both;
+    the serving is a counted run added to ``totals``."""
     from cp360_tpu_torch.compat import jax_params
     from cp360_tpu_torch.config import Config
-    from cp360_tpu_torch.ops import cube_pool
     from cp360_tpu_torch.serving.server import SaliencyModel
 
     params = jax_params.init_resnet_params(SEED, "resnet50", 1000)
     cfg = Config(cube_dim=224, equi_h=1920, equi_w=960, compute_dtype="float32",
                  host_cube_remap=True, serve_max_batch=2)
     frame = natural_frame(960, 1920, np.random.RandomState(SEED + 10))
-    k3 = cube_pool.launches
     sal = {}
-    for fmt in ("rgb8", "yuv420"):
-        model = SaliencyModel(params, cfg.replace(upload_format=fmt), device="cuda")
-        try:
-            sal[fmt] = model.predict(frame)
-        finally:
-            model.close()
-        del model
+
+    def serve():
+        for fmt in ("rgb8", "yuv420"):
+            model = SaliencyModel(params, cfg.replace(upload_format=fmt), device="cuda")
+            try:
+                sal[fmt] = model.predict(frame)
+            finally:
+                model.close()
+            del model
+
+    _, got = counted_run(totals, serve)
     rel, corr, ok = yuv_close(sal["rgb8"], sal["yuv420"])
-    k3 = cube_pool.launches - k3
+    k3 = got["cube_pool3x3s2"]
     print(f"video: serving yuv420 vs rgb8 (host remap, f32, one 960x1920 frame): relative "
           f"max error {rel} (limit 0.08), correlation {corr} (limit 0.998); K3 {k3}", flush=True)
     if not ok or k3 != 2:
         fail(f"served yuv420 out of the bound of rgb8 (K3 {k3})")
-    return {"cube_pool3x3s2": k3}
 
 
 def phase_video() -> dict:
@@ -1190,7 +1577,6 @@ def phase_video() -> dict:
     from cp360_tpu_torch.compat import jax_params
     from cp360_tpu_torch.config import Config
     from cp360_tpu_torch.data.dataset import builtin_split
-    from cp360_tpu_torch.ops import cube_conv, cube_pool, equi_gather
     from cp360_tpu_torch.pipelines.extract import extract_frames, stage1_batch
     from cp360_tpu_torch.pipelines.temporal import infer_video
 
@@ -1198,6 +1584,7 @@ def phase_video() -> dict:
     build.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_video_", dir=build))
     stats = {"card": gpu_line()}
+    counted: dict = {}
     try:
         # -- extraction at full width: 2 videos x 24 seeded 960x1920 frames
         cfg = Config(cube_dim=224, equi_h=1920, equi_w=960, input_size=1000,
@@ -1218,14 +1605,12 @@ def phase_video() -> dict:
         print(f"video: model, frames and warm-up in {time.monotonic() - t0:.1f} s", flush=True)
 
         art = tmp / "static_resnet50"
-        cube_conv.launches = cube_conv.dx_launches = equi_gather.launches = 0
-        cube_pool.launches = 0
         t0 = time.monotonic()
-        written = sum(extract_frames(model, cfg, videos[v], str(art / v), output_img=True,
-                                     output_feature=True) for v in vids)
-        torch.cuda.synchronize()
+        written, got = counted_run(counted, lambda: sum(
+            extract_frames(model, cfg, videos[v], str(art / v), output_img=True,
+                           output_feature=True) for v in vids))
         wall = time.monotonic() - t0
-        k2, k3 = equi_gather.launches, cube_pool.launches
+        k2, k3 = got["equi_to_cube"], got["cube_pool3x3s2"]
         n_batches = 2 * len(vids)  # 23 artifacts per video: 16 + a padded 7
         stats.update(extract_frames=written, extract_s=wall, extract_fps=written / wall,
                      extract_batches=n_batches)
@@ -1261,20 +1646,20 @@ def phase_video() -> dict:
         full = Golden("e2e_full", tmp / "full")
 
         def extract_cli(out, *extra):
-            """cli.extract_features on the golden's mp4s: (seconds, K2, K3)."""
+            """cli.extract_features on the golden's mp4s, a counted run:
+            (seconds, K2, K3)."""
             cwd = Path.cwd()
             os.chdir(full.root)
-            k2, k3 = equi_gather.launches, cube_pool.launches
             try:
                 t0 = time.monotonic()
-                extract_features.main(["--device", "cuda", "--out", out, "--mode", "resnet50",
-                                       "--weights", str(full.root / "resnet50.npz"),
-                                       "--config", str(full.config), *extra])
-                torch.cuda.synchronize()
+                _, got = counted_run(counted, lambda: extract_features.main(
+                    ["--device", "cuda", "--out", out, "--mode", "resnet50",
+                     "--weights", str(full.root / "resnet50.npz"), "--config", str(full.config),
+                     *extra]))
                 cli_s = time.monotonic() - t0
             finally:
                 os.chdir(cwd)
-            return cli_s, equi_gather.launches - k2, cube_pool.launches - k3
+            return cli_s, got["equi_to_cube"], got["cube_pool3x3s2"]
 
         def artifacts(out, vid, sub):
             d = full.root / "output" / f"{out}_resnet50" / vid / sub
@@ -1361,7 +1746,8 @@ def phase_video() -> dict:
         scaled = Golden("e2e", tmp / "scaled")
         result, cli_s, k1 = run_test_temporal(scaled.root, scaled.root / "clstm.npz",
                                               scaled.root / "ref_arts", scaled.config,
-                                              scaled.seed, "--batch-windows", "8")
+                                              scaled.seed, "--batch-windows", "8",
+                                              totals=counted)
         pred_err = 0.0
         for vid in scaled.vids:
             for fidx, ref in scaled.group("pred", vid).items():
@@ -1386,7 +1772,7 @@ def phase_video() -> dict:
             result, cli_s, k1 = run_test_temporal(
                 full.root, full.root / "clstm.npz", full.root / "ref_arts", full.config,
                 full.seed, "--batch-windows", "4", "--set", f"output_path={out}",
-                "--set", f"compute_dtype={dtype}")
+                "--set", f"compute_dtype={dtype}", totals=counted)
             preds = {(vid, f): np.load(out / "temporal" / vid / f"{f}.npy")
                      for vid in full.vids for f in full.group("pred", vid)}
             outs[dtype] = (result, preds, k1, cli_s)
@@ -1422,7 +1808,7 @@ def phase_video() -> dict:
         synth_cfg.write_text(f"label_path: {tmp / 'gt'}\noutput_path: {tmp / 'out'}\n"
                              "compute_dtype: bfloat16\n")
         result, cli_s, k1 = run_test_temporal(tmp, full.root / "clstm.npz", art, synth_cfg,
-                                              SEED, "--batch-windows", "64")
+                                              SEED, "--batch-windows", "64", totals=counted)
         want_k1 = 15 * window_batches(art, vids, 5, 64)
         print(f"video: test_temporal bf16 on the extracted artifacts ({2 * 18} windows): "
               f"result {result} in {cli_s:.1f} s (model load and metrics included); "
@@ -1431,11 +1817,9 @@ def phase_video() -> dict:
             fail(f"stage 2 on extracted artifacts: result {result}, K1 {k1}")
         # -- from a video to trained weights on the port's own motion, and
         # serving yuv420
-        train_on_port_motion(model, tmp / "motion_train")
-        serve_yuv420()
-        launches = {"cube_conv3x3": cube_conv.launches, "cube_conv3x3_dx": cube_conv.dx_launches,
-                    "equi_to_cube": equi_gather.launches, "cube_pool3x3s2": cube_pool.launches}
-        print(f"video: launches over the phase's counted runs {json.dumps(launches)}",
+        train_on_port_motion(model, tmp / "motion_train", counted)
+        serve_yuv420(counted)
+        print(f"video: launches over the phase's counted runs {json.dumps(counted)}",
               flush=True)
 
         # -- timings outside the counted runs
@@ -1475,7 +1859,189 @@ def phase_video() -> dict:
         stats.update(extract_of_om_fps=written / wall, extract_of_om_s=wall)
         stats.update(flow_speed())
         print(f"video: {json.dumps(stats)}", flush=True)
-        return launches
+        return counted
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- phase 7: the streaming entry point ---------------------------------------
+
+STREAM_TOL = 1e-4  # stream vs offline maps, f32 (tests/test_stream.py: atol and rtol)
+STREAM_CONFIG = """\
+equi_h: 1920
+equi_w: 960
+cube_dim: 224
+input_size: 1000
+hidden_size: 1000
+seq_len: 5
+compute_dtype: bfloat16
+clstm_conv_impl: pallas
+"""
+
+
+def stream_batches(n_decoded: int, batch: int, seq_len: int = 5):
+    """(stage-1 batches, window batches) of a stream over ``n_decoded``
+    frames: the first frame seeds the 2-frame lag, a batch runs windows
+    once the carry and its real frames hold seq_len."""
+    n = n_decoded - 1
+    stage1, windows, carry = 0, 0, 0
+    for b0 in range(0, n, batch):
+        real = min(batch, n - b0)
+        stage1 += 1
+        windows += carry + real >= seq_len
+        carry = min(seq_len - 1, carry + real)
+    return stage1, windows
+
+
+def write_video(path: Path, n: int, rng) -> None:
+    """A seeded n-frame 960x1920 mp4v video: a natural-spectrum texture
+    panning 6 px a frame."""
+    import cv2
+
+    base = natural_frame(960, 1920, rng)
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (1920, 960))
+    if not vw.isOpened():
+        fail(f"cv2 cannot write mp4v video {path}")
+    for t in range(n):
+        vw.write(np.roll(base, 6 * t, axis=1))
+    vw.release()
+
+
+def phase_stream() -> dict:
+    """``pipelines/stream.py`` and ``cli/stream_saliency.py`` at full
+    width (ResNet-50, 1000 classes, 960x1920 frames, 224 faces, ConvLSTM
+    1000/1000, seq_len 5)."""
+    import cv2
+
+    from cp360_tpu_torch.cli import stream_saliency
+    from cp360_tpu_torch.compat import jax_params
+    from cp360_tpu_torch.config import load_config
+    from cp360_tpu_torch.pipelines.stream import stream_video_saliency
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_", dir=build))
+    stats = {"card": gpu_line()}
+    counted: dict = {}
+    try:
+        # -- the e2e_full golden's mp4s: offline (host remap, f16 feats,
+        # batches of 8 as the stream's) against the stream, f32
+        full = Golden("e2e_full", tmp / "full")
+        cwd = Path.cwd()
+        os.chdir(full.root)
+        try:
+            from cp360_tpu_torch.cli import extract_features
+
+            extract_features.main(["--device", "cuda", "--out", "remap16", "--mode", "resnet50",
+                                   "--weights", str(full.root / "resnet50.npz"),
+                                   "--config", str(full.config), "-of",
+                                   "--set", "host_cube_remap=true", "--set", "feat_dtype=float16",
+                                   "--set", "extract_batch=8"])
+        finally:
+            os.chdir(cwd)
+        offline_out = full.root / "offline"
+        run_test_temporal(full.root, full.root / "clstm.npz",
+                          full.root / "output" / "remap16_resnet50", full.config, full.seed,
+                          "--batch-windows", "4", "--set", f"output_path={offline_out}",
+                          totals={})  # the reference, not the stream's path
+        cfg = load_config(str(full.config))
+        backbone = jax_params.load_npz(str(full.root / "resnet50.npz"))
+        clstm = jax_params.load_npz(str(full.root / "clstm.npz"))
+        streams = {}
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            model = jax_params.resnet_from_params(backbone, "resnet50", True, tdt, "cuda")
+            cell = jax_params.clstm_from_params(clstm, tdt, True, "pallas", "cuda")
+            c = cfg.replace(compute_dtype=dtype)
+            for vid in full.vids:
+                mp4 = full.root / "dataset" / "test" / f"{vid}.mp4"
+                n_dec = int(cv2.VideoCapture(str(mp4)).get(cv2.CAP_PROP_FRAME_COUNT))
+                maps, got = counted_run(counted, lambda: dict(stream_video_saliency(
+                    model, cell, str(mp4), c, stage1_batch=8)))
+                s1, wb = stream_batches(n_dec, 8)
+                streams[(dtype, vid)] = maps
+                print(f"stream: {vid} ({n_dec} frames) {dtype}: maps {sorted(maps)}; launches "
+                      f"{got} (want K3 {s1}, K1 {15 * wb}, no K2)", flush=True)
+                if got["cube_pool3x3s2"] != s1 or got["cube_conv3x3"] != 15 * wb \
+                        or got["equi_to_cube"] or got["cube_conv3x3_dx"]:
+                    fail(f"stream launches {got} for {s1} stage-1 and {wb} window batches")
+            del model, cell
+            torch.cuda.empty_cache()
+        worst, bf_diff = 0.0, 0.0
+        for vid in full.vids:
+            d = offline_out / "temporal" / vid
+            offline = {int(f[:-4]): np.load(d / f) for f in os.listdir(d) if f.endswith(".npy")}
+            maps = streams[("float32", vid)]
+            if not offline or sorted(offline) != sorted(maps)[:-1]:
+                fail(f"{vid}: offline ids {sorted(offline)}, stream ids {sorted(maps)}")
+            for k, p in offline.items():
+                worst = max(worst, float(np.abs(maps[k] - p).max()))
+                if not np.all(np.abs(maps[k] - p) <= STREAM_TOL + STREAM_TOL * np.abs(p)):
+                    fail(f"{vid}/{k}: stream map off the offline one by "
+                         f"{np.abs(maps[k] - p).max()}")
+            bf = streams[("bfloat16", vid)]
+            if sorted(bf) != sorted(maps):
+                fail(f"{vid}: bf16 stream ids {sorted(bf)}")
+            bf_diff = max(bf_diff, max(float(np.abs(bf[k] - maps[k]).max()) for k in maps))
+        stats.update(golden_stream_vs_offline_f32=worst, golden_stream_bf16_vs_f32=bf_diff)
+        print(f"stream: e2e_full mp4s, f32 stream vs offline extract_features (host remap, f16 "
+              f"feats) -> test_temporal: max|diff| {worst} (limit {STREAM_TOL} + {STREAM_TOL} "
+              f"relative), one extra final window each; bf16 stream vs f32 stream "
+              f"max|diff| {bf_diff}", flush=True)
+
+        # -- the CLI on a seeded 64-frame 960x1920 video, cut and resumed
+        video = tmp / "pan64.mp4"
+        write_video(video, 64, np.random.RandomState(SEED + 15))
+        cfg_path = tmp / "stream.yaml"
+        cfg_path.write_text(STREAM_CONFIG)
+        argv = ["--video", str(video), "--backbone", str(full.root / "resnet50.npz"),
+                "--clstm", str(full.root / "clstm.npz"), "--config", str(cfg_path),
+                "--device", "cuda"]
+        t0 = time.monotonic()
+        n_maps, got = counted_run(counted, lambda: stream_saliency.main(
+            argv + ["--out", str(tmp / "sal_full")]))
+        s1, wb = stream_batches(64, 8)
+        print(f"stream: cli.stream_saliency on 64 frames: {n_maps} maps in "
+              f"{time.monotonic() - t0:.1f} s (weights loaded); launches {got} (want K3 {s1}, "
+              f"K1 {15 * wb}, no K2)", flush=True)
+        if n_maps != 59 or got["cube_pool3x3s2"] != s1 or got["cube_conv3x3"] != 15 * wb \
+                or got["equi_to_cube"]:
+            fail(f"stream CLI: {n_maps} maps, launches {got}")
+        full_maps = sorted(os.listdir(tmp / "sal_full"))
+        (tmp / "sal_cut").mkdir()
+        for name in full_maps[:23]:
+            shutil.copy(tmp / "sal_full" / name, tmp / "sal_cut" / name)
+        n_resumed, got = counted_run(counted, lambda: stream_saliency.main(
+            argv + ["--out", str(tmp / "sal_cut"), "--resume"]))
+        same = sorted(os.listdir(tmp / "sal_cut")) == full_maps and all(
+            np.array_equal(np.load(tmp / "sal_cut" / f), np.load(tmp / "sal_full" / f))
+            for f in full_maps)
+        print(f"stream: --resume after a cut at {full_maps[23]}: {n_resumed} maps written, the "
+              f"suffix bit for bit: {same}; launches {got}", flush=True)
+        if not same or n_resumed != len(full_maps) - 23 or got["equi_to_cube"]:
+            fail("the resumed stream differs from the uninterrupted one")
+
+        # -- timings outside the counted runs: frames/s, median of 3, bf16
+        cfg64 = load_config(str(cfg_path))
+        model = jax_params.resnet_from_params(backbone, "resnet50", True, torch.bfloat16, "cuda")
+        cell = jax_params.clstm_from_params(clstm, torch.bfloat16, True, "pallas", "cuda")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            n = len(list(stream_video_saliency(model, cell, str(video), cfg64)))
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        stats.update(stream_s_64_frames=times, stream_frames_per_s=64 / float(np.median(times)),
+                     stream_maps=n)
+        prof = profile_step(lambda: list(stream_video_saliency(model, cell, str(video), cfg64,
+                                                               max_frames=17)),
+                            top=12, match="cube_")
+        stats["stream_17_frames_idle_share"] = prof.get("idle_share")
+        print(f"stream: 17 frames (two stage-1 batches, 4 + 8 windows) profile "
+              f"{json.dumps(prof)}", flush=True)
+        print(f"stream: {json.dumps(stats)}", flush=True)
+        return counted
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1512,8 +2078,9 @@ def profile_step(fn, top: int = 12, match: str = "") -> dict:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="build,kernels,slice,train,video",
-                        help="comma-separated subset of build,kernels,slice,train,video")
+    parser.add_argument("--phases", default="build,kernels,slice,train,options,video,stream",
+                        help="comma-separated subset of build,kernels,slice,train,options,"
+                             "video,stream")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1529,16 +2096,19 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    t_start = time.monotonic()
     phase_build()  # always: the later phases need the kernels
     kernels = phase_kernels() if "kernels" in phases else {}
+    print(f"phase build+kernels: {time.monotonic() - t_start:.1f} s", flush=True)
     # each path runs with the counts set to 0 just before it, read just after
     by_path = {}
-    if "slice" in phases:
-        by_path["slice"] = phase_slice()
-    if "train" in phases:
-        by_path["train"] = phase_train()
-    if "video" in phases:
-        by_path["video"] = phase_video()
+    for name, run in (("slice", phase_slice), ("train", phase_train),
+                      ("options", phase_options), ("video", phase_video),
+                      ("stream", phase_stream)):
+        if name in phases:
+            t0 = time.monotonic()
+            by_path[name] = run()
+            print(f"phase {name}: {time.monotonic() - t0:.1f} s", flush=True)
 
     meta = {
         "cube_conv3x3": ("cp360_tpu_torch/csrc/cube_conv3x3.cu",
@@ -1553,7 +2123,7 @@ def main(argv=None) -> None:
     line = []
     for name, (source, replaces) in meta.items():
         k = kernels.get(name, {})
-        paths = {path: n[name] for path, n in by_path.items() if name in n}
+        paths = {path: n[name] for path, n in by_path.items()}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": sum(paths.values()) if paths else None,

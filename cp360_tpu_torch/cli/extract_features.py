@@ -15,9 +15,11 @@ where the artifacts stop.  Weights are the JAX package's ``.npz``
 initialized from a seed (demo only).  ``-om`` with ``opt_flow: true``
 writes the optical flow (``flow_backend``; the device backends solve on
 the extraction's device); ``host_cube_remap: true`` with ``upload_format:
-yuv420`` uploads 4:2:0 planes.  Extraction runs on the card; without one it
-exits unless ``--device cpu`` is given.  Not ported, and refused:
-``--data-parallel``, ``--supervise``, archs other than resnet50.
+yuv420`` uploads 4:2:0 planes.  ``--supervise`` runs the extraction as a
+child that is restarted when it stalls or crashes (a rerun resumes).
+Extraction runs on the card; without one it exits unless ``--device cpu``
+is given.  Not ported, and refused: ``--data-parallel``, ``.pth`` weights
+and archs other than resnet50.
 """
 
 from __future__ import annotations
@@ -47,26 +49,33 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--data-parallel", type=int, default=None, help="not ported")
     parser.add_argument("--supervise", nargs="?", type=float, const=420.0, default=None,
-                        metavar="STALL_S", help="not ported")
+                        metavar="STALL_S",
+                        help="run under a restart-on-stall supervisor (utils/supervise.py): "
+                             "a child with no artifact or output progress for STALL_S seconds "
+                             "is killed and relaunched, and resumes")
     add_config_overrides(parser)
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         print(f"WARNING: ignoring unrecognized arguments: {' '.join(unknown)} "
               "(config fields go through --set FIELD=VALUE)")
     cfg = config_from_args(args)
-    if args.supervise is not None or args.data_parallel:
+    if args.data_parallel:
         raise NotImplementedError(
-            "--supervise and --data-parallel are not ported to cp360_tpu_torch yet "
-            '(the port extracts on one card); see ROADMAP.md, "trainer options" and '
-            '"parallel"')
+            "--data-parallel is not ported to cp360_tpu_torch yet (the port extracts on one "
+            'card); see ROADMAP.md, "parallel"')
     if args.mode != "resnet50":
         raise NotImplementedError(
             f"--mode {args.mode!r} is not ported yet (ported: resnet50); see "
             'ROADMAP.md, "resnet18/34/101/152" and "vgg16-bn and mobilenet_v2"')
     check_extract_config(cfg, args.output_motion)
-    if args.weights and not args.weights.endswith(".npz"):
-        raise SystemExit(f"{args.weights}: the port reads .npz checkpoints only "
-                         "(convert .pth with the JAX package's cp360-convert)")
+    if args.weights:
+        jax_params.require_npz(args.weights)
+    if args.supervise is not None:
+        from cp360_tpu_torch.utils.supervise import run_supervised
+
+        out_path = os.path.join(cfg.output_path, f"{args.out}_{args.mode}")
+        raise SystemExit(run_supervised("cp360_tpu_torch.cli.extract_features", argv,
+                                        [out_path], args.supervise))
     device = resolve_device(args.device)  # before loading weights: fail fast
 
     for k, v in sorted(dataclasses.asdict(cfg).items()):

@@ -40,9 +40,8 @@ def main(argv=None):
     device = resolve_device(args.device)  # before loading weights: fail fast
 
     for path in (args.weights, args.clstm):
-        if path and not path.endswith(".npz"):
-            raise SystemExit(f"{path}: the port reads .npz checkpoints only "
-                             "(convert .pth with the JAX package's cp360-convert)")
+        if path:
+            jax_params.require_npz(path)
     if args.weights:
         params = jax_params.load_npz(args.weights)
     else:

@@ -12,13 +12,14 @@ the window predictions to ``<output_path>/temporal/<vid>/NNNNN.npy``,
 scores them against ``<label_path>/<vid>.mp4/NNNNN.npy`` and writes the
 reference-compatible ``<basename of --dir>_result.txt`` (in the working
 directory) with the frame-weighted aggregate.  ``--model`` is a ``.npz``
-(the JAX package's format; convert the reference's ``.pth`` with the JAX
-package's cp360-convert); a bare name is looked up under
-``checkpoint_path``.  ``--resume`` skips videos
-whose ``_done.npz`` marker says maps, overlays and metrics completed, and
-their cached metrics still enter the aggregate.  Inference runs on the
-card; without one it exits unless ``--device cpu`` is given.  Not ported,
-and refused: ``--data-parallel`` and ``--supervise``.
+(the JAX package's format; ``.pth`` waits for ROADMAP.md's "weight
+conversion CLI"); a bare name is looked up under ``checkpoint_path``.
+``--resume`` skips videos whose ``_done.npz`` marker says maps, overlays
+and metrics completed, and their cached metrics still enter the
+aggregate; ``--supervise`` runs the job as a child that is restarted with
+``--resume`` when it stalls or crashes.  Inference runs on the card;
+without one it exits unless ``--device cpu`` is given.  Not ported, and
+refused: ``--data-parallel``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import numpy as np
 def main(argv=None):
     import torch
 
-    from cp360_tpu_torch.compat.jax_params import clstm_from_params, load_npz
+    from cp360_tpu_torch.compat.jax_params import clstm_from_params, load_npz, require_npz
     from cp360_tpu_torch.config import add_config_overrides, config_from_args
     from cp360_tpu_torch.data.dataset import builtin_split
     from cp360_tpu_torch.pipelines.temporal import aggregate
@@ -50,24 +51,30 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--data-parallel", type=int, default=None, help="not ported")
     parser.add_argument("--supervise", nargs="?", type=float, const=420.0, default=None,
-                        metavar="STALL_S", help="not ported")
+                        metavar="STALL_S",
+                        help="run under a restart-on-stall supervisor (utils/supervise.py); "
+                             "the child is relaunched with --resume, continuing at the first "
+                             "unfinished video")
     add_config_overrides(parser)
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         print(f"WARNING: ignoring unrecognized arguments: {' '.join(unknown)} "
               "(config fields go through --set FIELD=VALUE)")
     cfg = config_from_args(args)
-    if args.supervise is not None or args.data_parallel:
+    if args.data_parallel:
         raise NotImplementedError(
-            "--supervise and --data-parallel are not ported to cp360_tpu_torch yet "
-            '(the port infers on one card); see ROADMAP.md, "trainer options" and '
-            '"parallel"')
+            "--data-parallel is not ported to cp360_tpu_torch yet (the port infers on one "
+            'card); see ROADMAP.md, "parallel"')
     if cfg.transfer_codec not in ("none", "int8"):
         raise ValueError(f"transfer_codec={cfg.transfer_codec!r} is not one of "
                          "'none', 'int8'")
-    if not args.model.endswith(".npz"):
-        raise SystemExit(f"{args.model}: the port reads .npz checkpoints only "
-                         "(convert .pth with the JAX package's cp360-convert)")
+    require_npz(args.model)
+    if args.supervise is not None:
+        from cp360_tpu_torch.utils.supervise import run_supervised
+
+        raise SystemExit(run_supervised("cp360_tpu_torch.cli.test_temporal", argv,
+                                        [os.path.join(cfg.output_path, "temporal")],
+                                        args.supervise, resume=True))
     device = resolve_device(args.device)  # before loading weights: fail fast
 
     model_path = args.model

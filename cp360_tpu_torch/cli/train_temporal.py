@@ -2,18 +2,25 @@
 on one GPU.
 
     python -m cp360_tpu_torch.cli.train_temporal --input output/static_resnet50 \
-        [--motion PATH] [--resume] [--metrics-jsonl FILE] [--device cuda|cpu] \
-        [--config config.yaml] [--sml W] [--tmpl W] [--mml W] [--lr LR] \
-        [--set FIELD=VALUE ...]
+        [--motion PATH] [--resume] [--metrics-jsonl FILE] [--profile-dir DIR] \
+        [--supervise [STALL_S]] [--device cuda|cpu] [--config config.yaml] \
+        [--sml W] [--tmpl W] [--mml W] [--lr LR] [--set FIELD=VALUE ...]
 
 The port of ``cp360_tpu/cli/train_temporal.py`` (reference script
 temporal_model/train_temporal.py).  Windows come from the train_60 split
 under ``--input`` (``<vid>/cube_feat/NNNNNN.npy`` [6, C, 7, 7] and
 ``<vid>/motion/NNNNNN.npy`` [H, W, 2]); checkpoints go to
-``checkpoint_path/CLSTM_s_..._t_..._m_.../``.  Training runs on the card;
+``checkpoint_path/CLSTM_s_..._t_..._m_.../``.  ``segment_windows: G``
+reads G consecutive windows as one frame run (``batch_size`` must divide
+by G), ``transfer_codec: int8`` ships the CAM windows int8, ``processes``
+sets the reader threads, ``eval_every_epochs`` with ``eval_dir`` and
+``label_path`` validates during training (``best.npz``, ``eval_patience``).
+``--profile-dir`` writes a ``torch.profiler`` trace of the epochs;
+``--supervise`` runs the job as a child that is restarted (with
+``--resume``) when it stalls or crashes.  Training runs on the card;
 without one it exits unless ``--device cpu`` is given.  Not ported yet,
-and refused: ``--data-parallel`` above 1, ``--profile-dir``, ``--supervise``
-and the config options listed in ``train/loop.py::check_config``.
+and refused: ``--data-parallel`` above 1 and the config options listed in
+``train/loop.py::check_config`` (ROADMAP.md, "parallel").
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import argparse
 def main(argv=None):
     from cp360_tpu_torch.compat.jax_params import init_clstm_params, load_npz
     from cp360_tpu_torch.config import add_config_overrides, config_from_args
-    from cp360_tpu_torch.data.dataset import PrefetchLoader, WindowDataset, builtin_split
+    from cp360_tpu_torch.data.dataset import (
+        PrefetchLoader, SegmentWindowDataset, WindowDataset, builtin_split)
     from cp360_tpu_torch.serving.server import resolve_device
     from cp360_tpu_torch.train.checkpoint import make_checkpointer
     from cp360_tpu_torch.train.loop import (
@@ -39,32 +47,50 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--data-parallel", type=int, default=None,
                         help="not ported: the port trains on one card")
-    parser.add_argument("--profile-dir", type=str, default=None, help="not ported")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace of the epochs here")
     parser.add_argument("--supervise", nargs="?", type=float, const=420.0, default=None,
-                        metavar="STALL_S", help="not ported")
+                        metavar="STALL_S",
+                        help="run under a restart-on-stall supervisor (utils/supervise.py); "
+                             "restarts resume the full train state (--resume is implied)")
     add_config_overrides(parser)
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         print(f"WARNING: ignoring unrecognized arguments: {' '.join(unknown)} "
               "(config fields go through --set FIELD=VALUE)")
     cfg = config_from_args(args)
-    if args.supervise is not None:
-        raise NotImplementedError("--supervise (restart-on-stall supervision) is not "
-                                  'ported to cp360_tpu_torch yet; see ROADMAP.md, '
-                                  '"trainer options"')
     if args.data_parallel:
         cfg = cfg.replace(mesh_data=args.data_parallel)
     if args.profile_dir:
         cfg = cfg.replace(profile_dir=args.profile_dir)
     check_config(cfg)
+    if args.supervise is not None:
+        from cp360_tpu_torch.utils.supervise import run_supervised
+
+        watch = [checkpoint_dir(cfg)] + ([args.metrics_jsonl] if args.metrics_jsonl else [])
+        # SIGTERM makes the child save its full train state: give a slow
+        # full-width step and checkpoint time before the SIGKILL
+        raise SystemExit(run_supervised("cp360_tpu_torch.cli.train_temporal", argv, watch,
+                                        args.supervise, resume=True, grace_s=60.0))
     device = resolve_device(args.device)  # before reading data: fail fast
 
     ds = WindowDataset(args.input, args.motion, builtin_split("train_60"), cfg.seq_len)
     if len(ds) == 0:
         raise SystemExit(f"no training windows found under {args.input}")
     print(f"{len(ds)} training windows")
-    loader = PrefetchLoader(ds, batch_size=cfg.batch_size, shuffle=True,
-                            transfer_codec=cfg.transfer_codec)
+    batch_size = cfg.batch_size
+    if cfg.segment_windows > 1:
+        # each batch element is a run of segment_windows stride-1 windows,
+        # read as one frame run and re-windowed on the device
+        if cfg.batch_size % cfg.segment_windows:
+            raise SystemExit(f"batch_size ({cfg.batch_size}) must be divisible by "
+                             f"segment_windows ({cfg.segment_windows})")
+        ds = SegmentWindowDataset(ds, cfg.segment_windows)
+        batch_size = cfg.batch_size // cfg.segment_windows
+        print(f"{len(ds)} segments of {cfg.segment_windows} windows "
+              f"({ds.n_windows} windows reachable)")
+    loader = PrefetchLoader(ds, batch_size=batch_size, shuffle=True,
+                            num_threads=cfg.processes, transfer_codec=cfg.transfer_codec)
 
     params = None
     resume_state = None

@@ -93,6 +93,16 @@ def save_npz(path: str, params) -> None:
     os.replace(tmp, path)
 
 
+def require_npz(path: str) -> None:
+    """Refuse a weights file that is not in the ``.npz`` format
+    :func:`load_npz` reads (the reference's ``.pth`` needs the conversion
+    CLI, not ported yet)."""
+    if not path.endswith(".npz"):
+        raise NotImplementedError(
+            f"{path}: reading .pth weights is not ported to cp360_tpu_torch yet (the port "
+            'reads .npz checkpoints); see ROADMAP.md, "weight conversion CLI"')
+
+
 def load_npz(path: str):
     with np.load(path) as f:
         return unflatten_params(dict(f))
@@ -264,11 +274,13 @@ def clstm_from_params(params: dict, compute_dtype: torch.dtype = torch.bfloat16,
                       use_cube_pad: bool = True, conv_impl: str = "xla",
                       device="cpu", trainable: bool = False) -> ConvLSTM:
     """A JAX ConvLSTM param tree -> the port's ``ConvLSTM`` on ``device``:
-    weights in the compute dtype for serving, or f32 trainable parameters."""
+    weights in the compute dtype for serving, or f32 trainable parameters.
+    Trainable parameters are copies: training never writes into the
+    caller's arrays (on the CPU an f32 ``.to`` would share their memory)."""
     dtype = torch.float32 if trainable else compute_dtype
 
     def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype, copy=trainable)
 
     convs = {name: {"w": tensor(params[name]["w"]), "b": tensor(params[name]["b"])}
              for name in ("conv1", "conv2", "gates")}
@@ -279,9 +291,10 @@ def clstm_from_params(params: dict, compute_dtype: torch.dtype = torch.bfloat16,
 def clstm_to_params(cell: ConvLSTM) -> dict:
     """The port's ``ConvLSTM`` -> a JAX ConvLSTM param tree of f32 numpy
     arrays (HWIO kernels), as ``init_clstm_params`` makes and
-    :func:`save_npz` writes."""
+    :func:`save_npz` writes.  The arrays are copies, so later steps do not
+    change a tree taken before them."""
     def array(t):
-        return t.detach().float().cpu().numpy()
+        return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
     return {name: {"w": array(getattr(cell, f"{name}_w")),
                    "b": array(getattr(cell, f"{name}_b"))}

@@ -8,8 +8,12 @@ index < max_index - seq_len + 1 (data/dataset.py:39).  Missing frames raise;
 batches are contiguous numpy arrays with the cubes transposed to NHWC and
 the artifacts' dtype kept (the train step widens to f32).
 
-Files are read with numpy (the JAX package's native batch loader is not
-ported).  The loader's ``transfer_codec`` takes ``none`` only.
+Files are read with numpy on ``num_threads`` threads (the JAX package's
+native batch loader is not ported).  :class:`SegmentWindowDataset` groups
+consecutive windows into one frame run (config ``segment_windows``), and
+the loader's ``transfer_codec: int8`` ships the CAM windows as int8 plus
+f32 scales and the flows as f16.  The JAX loader's multi-host ``rows``
+waits for ROADMAP.md, "parallel".
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import os
 import queue
 import re
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -61,52 +66,127 @@ class WindowDataset:
     def __len__(self) -> int:
         return len(self.windows)
 
-    def _frame_path(self, root: str, vid: str, sub: str, idx: int) -> str:
-        return os.path.join(root, vid, sub, f"{idx:06}.npy")
-
-    def _load(self, root: str, vid: str, sub: str, idx: int) -> np.ndarray:
-        path = self._frame_path(root, vid, sub, idx)
-        if not os.path.exists(path):
-            kind = "CAM" if sub == "cube_feat" else "flow"
-            raise FileNotFoundError(f"missing {kind} frame {path}")
-        return np.load(path)
-
     def __getitem__(self, i: int):
         """Returns (seq [T,6,h,w,C] NHWC, flows [T,H,W,2], vid, start)."""
         vid, start = self.windows[i]
-        frames = range(start, start + self.seq_len)
-        seq = np.stack([self._load(self.feat_root, vid, "cube_feat", f).transpose(0, 2, 3, 1)
-                        for f in frames])
-        flow = np.stack([self._load(self.motion_root, vid, "motion", f) for f in frames])
-        return seq, flow, vid, start
+        seq, flow = self.read_runs([(vid, start)], self.seq_len)
+        return seq[0], flow[0], vid, start
 
-    def get_batch(self, idxs):
+    def read_runs(self, runs: Sequence[Tuple[str, int]], n_frames: int, n_threads: int = 0):
+        """(seq [R, n_frames, 6, h, w, C], flows [R, n_frames, H, W, 2]) for
+        runs of ``n_frames`` consecutive frames starting at each (vid, first
+        frame index); files are read on ``n_threads`` threads (0 or 1: on
+        the caller's).  A missing file raises before any is read."""
+        paths = {"cube_feat": [], "motion": []}
+        for vid, start in runs:
+            for f in range(start, start + n_frames):
+                for sub, root in (("cube_feat", self.feat_root), ("motion", self.motion_root)):
+                    paths[sub].append(os.path.join(root, vid, sub, f"{f:06}.npy"))
+        for sub, kind in (("cube_feat", "CAM"), ("motion", "flow")):
+            for p in paths[sub]:
+                if not os.path.exists(p):
+                    raise FileNotFoundError(f"missing {kind} frame {p}")
+        if n_threads > 1:
+            with ThreadPoolExecutor(max_workers=n_threads) as pool:
+                cams, flows = (list(pool.map(np.load, paths[sub]))
+                               for sub in ("cube_feat", "motion"))
+        else:
+            cams, flows = ([np.load(p) for p in paths[sub]] for sub in ("cube_feat", "motion"))
+        cams = np.stack(cams).reshape(len(runs), n_frames, *cams[0].shape)
+        # reference layout [6, C, h, w] -> NHWC; the artifact dtype is kept
+        seq = np.ascontiguousarray(cams.transpose(0, 1, 2, 4, 5, 3))
+        return seq, np.stack(flows).reshape(len(runs), n_frames, *flows[0].shape)
+
+    def get_batch(self, idxs, n_threads: int = 0):
         """(seq [B,T,6,h,w,C], flows [B,T,H,W,2]) for the given windows."""
-        items = [self[int(i)] for i in idxs]
-        return (np.ascontiguousarray(np.stack([it[0] for it in items])),
-                np.stack([it[1] for it in items]))
+        return self.read_runs([self.windows[int(i)] for i in idxs], self.seq_len, n_threads)
+
+
+class SegmentWindowDataset:
+    """Groups of ``group`` consecutive windows read as ONE frame run
+    (config ``segment_windows``; ``cp360_tpu/data/dataset.py:151``).
+
+    Segment (vid, s) covers windows s .. s+group-1, i.e. frames s ..
+    s+F-1 with F = group + seq_len - 1, so each frame is read and shipped
+    once instead of up to seq_len times; the train step rebuilds the
+    stride-1 windows on the device (train/loop.py::expand_segments) and
+    the update equals the one on the windows fed directly.  A segment
+    spans consecutive start indices of the base dataset only (a gap in the
+    artifact numbering ends the run), and a run's tail of fewer than
+    ``group`` windows is dropped, so every batch has one shape.
+    """
+
+    def __init__(self, base: WindowDataset, group: int):
+        if group < 1:
+            raise ValueError(f"group must be >= 1, got {group}")
+        self.base = base
+        self.group = group
+        self.seq_len = base.seq_len
+        self.segments: List[Tuple[str, int]] = []  # (vid, first start index)
+        run: List[int] = []
+        prev_vid = None
+        for vid, start in base.windows + [(None, None)]:  # sorted per video, ascending
+            if vid != prev_vid or not run or start != run[-1] + 1:
+                self.segments.extend((prev_vid, run[i])
+                                     for i in range(0, len(run) - group + 1, group))
+                run, prev_vid = [], vid
+            run.append(start)
+
+    def __len__(self) -> int:
+        return len(self.segments)
+
+    @property
+    def n_windows(self) -> int:
+        return len(self.segments) * self.group
+
+    def get_batch(self, idxs, n_threads: int = 0):
+        """Segments -> (seq [S, F, 6, h, w, C], flows [S, F, H, W, 2]),
+        F = group + seq_len - 1."""
+        return self.base.read_runs([self.segments[int(i)] for i in idxs],
+                                   self.group + self.seq_len - 1, n_threads)
 
 
 class PrefetchLoader:
     """Shuffled, batched, background-prefetching iterator over a dataset:
-    one worker thread reads the next ``prefetch`` batches while the device
-    runs the current one (the reference's DataLoader(num_workers=4),
-    temporal_model/train_temporal.py:232-233)."""
+    one worker thread reads the next ``prefetch`` batches (each on
+    ``num_threads`` reader threads) while the device runs the current one
+    (the reference's DataLoader(num_workers=4),
+    temporal_model/train_temporal.py:232-233).
 
-    def __init__(self, dataset: WindowDataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, prefetch: int = 2, transfer_codec: str = "none"):
-        if transfer_codec != "none":
-            raise NotImplementedError(
-                f"transfer_codec={transfer_codec!r} is not ported yet (the int8 codec; "
-                'see ROADMAP.md, "trainer options"); use transfer_codec: none')
+    ``transfer_codec="int8"`` yields the CAM windows as
+    :class:`~cp360_tpu_torch.ops.quantize.Quantized` (int8 + f32 scales,
+    dequantized on the device by the train step) and the flows as f16.
+    Flows never go int8: the motion mask compares |flow| with the absolute
+    ``mm_th`` (0.15 px), and int8's step is a window's own peak / 127 (a
+    20 px peak gives 0.157 px), which would zero the static mask; f16
+    keeps the error near 0.01 px and still halves the flows' bytes.  The
+    codec runs on the worker thread, beside the device's work.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
+                 num_threads: int = 4, prefetch: int = 2, transfer_codec: str = "none"):
+        if transfer_codec not in ("none", "int8"):
+            raise ValueError(f"transfer_codec={transfer_codec!r} is not one of 'none', 'int8'")
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.num_threads = max(1, num_threads)
         self.prefetch = prefetch
+        self.transfer_codec = transfer_codec
 
     def __len__(self) -> int:
         return len(self.ds) // self.batch_size  # a short last batch is dropped
+
+    def load_batch(self, idxs):
+        """One batch as the worker ships it (after the codec)."""
+        seq, flows = self.ds.get_batch(idxs, n_threads=self.num_threads)
+        if self.transfer_codec == "int8":
+            from cp360_tpu_torch.ops.quantize import Quantized, quantize_cam_np
+
+            seq = Quantized(*quantize_cam_np(seq))
+            flows = flows.astype(np.float16)
+        return seq, flows
 
     def iter_epoch(self, epoch: int,
                    skip_batches: int = 0) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -138,7 +218,7 @@ class PrefetchLoader:
         def worker():
             try:
                 for idxs in batches:
-                    if stop.is_set() or not put(self.ds.get_batch(idxs)):
+                    if stop.is_set() or not put(self.load_batch(idxs)):
                         return
                 put(None)
             except Exception as e:  # surfaced to the consumer, raised there

@@ -15,6 +15,8 @@ so the host and device quantizers agree bit for bit.
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import numpy as np
 import torch
 
@@ -26,6 +28,23 @@ _QMAX = 127.0
 _INV_QMAX = np.float32(1.0) / np.float32(_QMAX)
 
 _NP_DTYPES = {torch.float16: np.float16, torch.float32: np.float32}
+
+
+class Quantized(NamedTuple):
+    """A quantized plane batch on its way to the device: int8 planes
+    [..., h, w, C] and their scales [..., 1, 1, C], numpy on the host or
+    tensors on either device.  The training loader yields the CAM windows
+    in this form with ``transfer_codec: int8``; the consumer calls
+    :func:`maybe_dequantize`."""
+
+    q: Any
+    scales: Any
+
+    def to(self, device, non_blocking: bool = False) -> "Quantized":
+        """Both parts as tensors on ``device`` (numpy parts are wrapped
+        first)."""
+        return Quantized(*(torch.as_tensor(a).to(device, non_blocking=non_blocking)
+                           for a in self))
 
 
 def _scale_range(scale_dtype) -> tuple:
@@ -56,6 +75,15 @@ def dequantize_cam(q: torch.Tensor, scales: torch.Tensor,
     """Inverse of :func:`quantize_cam` (on the device, so only int8 and
     the small scale tensor cross the link)."""
     return (q.float() * scales.float()).to(dtype)
+
+
+def maybe_dequantize(x, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A tensor -> ``x.to(dtype)``; a :class:`Quantized` -> its dequantized
+    planes, computed where its tensors live (on the card, only int8 and
+    the scales crossed)."""
+    if isinstance(x, Quantized):
+        return dequantize_cam(x.q, x.scales, dtype)
+    return x.to(dtype)
 
 
 def quantize_cam_np(x: np.ndarray, scale_dtype=np.float32):

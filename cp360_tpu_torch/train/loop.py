@@ -16,13 +16,22 @@ Checkpoints are the JAX package's flat ``.npz`` trees, with its naming
 scheme CLSTM_{epoch:02}_{iter:06} (train_temporal.py:182-185), and the full
 train state keeps optax's leaf order.
 
+A batch may come as contiguous frame runs (``segment_windows`` > 1,
+re-windowed on the device by :func:`expand_segments`) and its CAM windows
+int8 (``transfer_codec: int8``, dequantized on the device first).  With
+``eval_every_epochs`` > 0 the epoch loop scores the weights on validation
+artifacts (train/validate.py), keeps ``best.npz`` and stops early after
+``eval_patience`` passes without a better AUC; ``profile_dir`` writes a
+``torch.profiler`` trace of the epoch loop.
+
 Not ported yet (each raises ``NotImplementedError`` from
-:func:`check_config`): segment windows, pipeline stages, data/model meshes,
-the orbax backend, in-training validation and profiling.
+:func:`check_config`): pipeline stages, data/model meshes and the orbax
+backend (ROADMAP.md, "parallel").
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import re
@@ -36,6 +45,7 @@ from cp360_tpu_torch.compat.jax_params import (
     clstm_from_params, clstm_to_params, init_clstm_params, save_npz)
 from cp360_tpu_torch.config import Config
 from cp360_tpu_torch.models.clstm import CONV_NAMES, ConvLSTM, clstm_rollout
+from cp360_tpu_torch.ops.quantize import Quantized, maybe_dequantize
 from cp360_tpu_torch.ops.resample import cube_to_equi
 from cp360_tpu_torch.train import losses as L
 
@@ -47,23 +57,21 @@ PARAM_ORDER = tuple((name, key) for name in sorted(CONV_NAMES) for key in ("b", 
 def check_config(cfg: Config) -> None:
     """Raise on the training options this port does not run yet."""
     unported = [  # (hit, option, the ROADMAP.md item that ports it)
-        (cfg.segment_windows > 1, "segment_windows > 1 (segment ingestion)", "trainer options"),
-        (cfg.transfer_codec != "none", f"transfer_codec={cfg.transfer_codec!r} (int8 codec)",
-         "trainer options"),
-        (cfg.pipeline_stages > 1, "pipeline_stages > 1 (pipeline parallelism)", "parallel"),
+        (cfg.pipeline_stages > 1, "pipeline_stages > 1 (pipeline parallelism)"),
         (cfg.mesh_data > 1 or cfg.mesh_model > 1,
-         "mesh_data/mesh_model > 1 (multi-card training)", "parallel"),
-        (cfg.checkpoint_backend == "orbax", "checkpoint_backend: orbax", "parallel"),
-        (cfg.eval_every_epochs > 0, "eval_every_epochs > 0 (in-training validation)",
-         "trainer options"),
-        (bool(cfg.profile_dir), "profile_dir (training profiles)", "trainer options"),
+         "mesh_data/mesh_model > 1 (multi-card training)"),
+        (cfg.checkpoint_backend == "orbax", "checkpoint_backend: orbax"),
     ]
-    for hit, what, item in unported:
+    for hit, what in unported:
         if hit:
             raise NotImplementedError(
-                f'{what} is not ported to cp360_tpu_torch yet; see ROADMAP.md, "{item}"')
+                f'{what} is not ported to cp360_tpu_torch yet; see ROADMAP.md, "parallel"')
     if cfg.checkpoint_backend != "npz":
         raise ValueError(f"unknown checkpoint_backend {cfg.checkpoint_backend!r} (npz)")
+    if cfg.transfer_codec not in ("none", "int8"):
+        raise ValueError(f"transfer_codec={cfg.transfer_codec!r} is not one of 'none', 'int8'")
+    if cfg.segment_windows < 1:
+        raise ValueError(f"segment_windows must be >= 1, got {cfg.segment_windows}")
 
 
 # ---- learning rate and optimizer ---------------------------------------------
@@ -163,13 +171,32 @@ def predictions_from_hiddens(hiddens: torch.Tensor, batch: int) -> torch.Tensor:
     return preds.reshape(t, batch, *preds.shape[1:])
 
 
+def expand_segments(x: torch.Tensor, group: int) -> torch.Tensor:
+    """[S, F, ...] contiguous frame runs -> [S*group, T, ...] stride-1
+    windows, T = F - group + 1 (``cp360_tpu/train/loop.py:93``): window
+    (s, k) lands at index s*group + k, the enumeration order of
+    data/dataset.py::SegmentWindowDataset."""
+    t = x.shape[1] - group + 1
+    w = torch.stack([x[:, k:k + t] for k in range(group)], dim=1)
+    return w.reshape(x.shape[0] * group, t, *x.shape[2:])
+
+
 def make_loss_fn(cfg: Config, model: ConvLSTM) -> Callable:
     """loss_fn(seq [B,T,6,h,w,C], flows [B,T,H,W,2]) -> (loss, parts) on
-    the model's device; either batch may be f16 (the math is f32)."""
+    the model's device; either batch may be f16 or a
+    :class:`~cp360_tpu_torch.ops.quantize.Quantized` (the math is f32).
+    With ``segment_windows`` = G > 1 the batches are frame runs [S, F, ...]
+    (F = G + T - 1) and the S*G windows are rebuilt here."""
+    group = cfg.segment_windows
 
     def loss_fn(seq, flows):
-        seq = seq.float()
-        flows = flows.float()
+        seq = maybe_dequantize(seq)
+        flows = maybe_dequantize(flows)
+        if group > 1:
+            # dequantize FIRST: the scales are per frame plane, so expanding
+            # after dequantization equals quantizing each window's own copy
+            seq = expand_segments(seq, group)
+            flows = expand_segments(flows, group)
         b, t = seq.shape[0], seq.shape[1]
         # Intra-window normalization, per sample over axes 1..5
         # (cp360_tpu/train/loop.py:171-177; the reference's at batch 1).  A
@@ -195,8 +222,10 @@ def make_train_step(cfg: Config, model: ConvLSTM, optimizer: torch.optim.Adam) -
     """step(seq, flows) -> metrics {'loss', 'smooth', 'temporal', 'mask'}
     (device scalars, no host sync): one Adam update of ``model`` in place.
 
-    seq [B, T, 6, h, w, C] CAM cubes (T = cfg.seq_len) and flows
-    [B, T, H, W, 2] are tensors on the model's device.
+    seq [B, T, 6, h, w, C] CAM cubes (T = cfg.seq_len; a Quantized pair
+    with the int8 codec) and flows [B, T, H, W, 2] are tensors on the
+    model's device; with ``segment_windows`` = G > 1, frame runs
+    [B/G, G + T - 1, ...] instead.
     """
     check_config(cfg)
     loss_fn = make_loss_fn(cfg, model)
@@ -376,6 +405,31 @@ class GracefulShutdown:
 # ---- the epoch loop ------------------------------------------------------------
 
 
+def batch_to_device(batch, device: torch.device):
+    """A numpy (or Quantized numpy) batch -> tensors on ``device``."""
+    if isinstance(batch, Quantized):
+        return batch.to(device)
+    return torch.as_tensor(batch).to(device)
+
+
+def _read_best(ckdir: str, log_fn):
+    """(best AUC, evals since best) from the ``best_val.json`` sidecar,
+    while ``best.npz`` exists beside it: ``best.npz`` stays monotone across
+    restarts and runs sharing the directory.  An unreadable sidecar starts
+    over from -inf."""
+    path = os.path.join(ckdir, "best_val.json")
+    if os.path.exists(path) and os.path.exists(os.path.join(ckdir, "best.npz")):
+        try:
+            with open(path) as f:
+                meta = json.load(f)
+            best, since = float(meta["auc"]), int(meta.get("evals_since_best", 0))
+            log_fn(f"existing best.npz at AUC {best:.4f} (kept unless validation beats it)")
+            return best, since
+        except (ValueError, KeyError, OSError):
+            pass
+    return float("-inf"), 0
+
+
 def train(cfg: Config, loader, params: Optional[dict] = None, device="cuda",
           log_fn=print, metrics_jsonl: Optional[str] = None,
           resume_state: Optional[str] = None) -> dict:
@@ -384,12 +438,18 @@ def train(cfg: Config, loader, params: Optional[dict] = None, device="cuda",
     ``loader.iter_epoch(epoch, skip_batches)`` yields numpy (seq
     [B,T,6,h,w,C], flows [B,T,H,W,2]) batches in an order fixed by the
     epoch, so a resume continues mid-epoch exactly (data/dataset.py::
-    PrefetchLoader).  ``resume_state``:
-    "latest" resumes the checkpoint directory's full train state; a path
-    loads that file.  Returns the trained param tree (numpy).
+    PrefetchLoader).  ``resume_state``: "latest" resumes the checkpoint directory's full
+    train state; a path loads that file.  Every ``eval_every_epochs``
+    epochs the weights are scored on ``eval_dir`` (train/validate.py): a
+    ``val`` record, ``best.npz`` with its ``best_val.json`` sidecar when
+    the AUC improves, a ``train_early_stop`` record and the end of training
+    after ``eval_patience`` passes without improvement, and a
+    ``val_error`` record (training goes on) when the pass raises.  Returns
+    the trained param tree (numpy).
     """
     from cp360_tpu_torch.train.checkpoint import make_checkpointer
     from cp360_tpu_torch.utils.logging import MetricLogger
+    from cp360_tpu_torch.utils.profiling import maybe_profile
 
     check_config(cfg)
     device = torch.device(device)
@@ -417,28 +477,29 @@ def train(cfg: Config, loader, params: Optional[dict] = None, device="cuda",
         log_fn(f"resumed full train state from {ck.path if resume_state == 'latest' else resume_state}"
                f" (iter {it}, epoch {start_epoch})")
 
-    def to_device(a):
-        return torch.from_numpy(a).to(device)
+    def epoch_batches(epoch):
+        skip, spe = 0, len(loader)
+        if restored is not None and epoch == start_epoch and spe:
+            skip = it - epoch * spe
+            if not 0 <= skip <= spe:
+                log_fn(f"resume: iter {it} does not align with {spe} batches/epoch "
+                       f"(dataset or batch size changed?); re-running epoch {epoch}")
+                skip = 0
+            elif skip:
+                log_fn(f"resume: epoch {epoch} continues at batch {skip}/{spe}")
+        return loader.iter_epoch(epoch, skip_batches=skip)
 
-    with MetricLogger(metrics_jsonl, echo=log_fn) as logger, GracefulShutdown(log_fn) as shutdown:
+    with MetricLogger(metrics_jsonl, echo=log_fn) as logger, \
+            maybe_profile(cfg.profile_dir), GracefulShutdown(log_fn) as shutdown:
+        best_auc, evals_since_best = _read_best(ckdir, log_fn)
         for epoch in range(start_epoch, cfg.epochs):
-            skip, spe = 0, len(loader)
-            if restored is not None and epoch == start_epoch and spe:
-                skip = it - epoch * spe
-                if not 0 <= skip <= spe:
-                    log_fn(f"resume: iter {it} does not align with {spe} batches/epoch "
-                           f"(dataset or batch size changed?); re-running epoch {epoch}")
-                    skip = 0
-                elif skip:
-                    log_fn(f"resume: epoch {epoch} continues at batch {skip}/{spe}")
-            batches = loader.iter_epoch(epoch, skip_batches=skip)
             # the running loss stays on the device: the host syncs once per
             # summary, not once per step
             running = torch.zeros((), device=device)
             n_since = 0
             t_sum = time.time()
-            for seq, flows in batches:
-                metrics = step_fn(to_device(seq), to_device(flows))
+            for seq, flows in epoch_batches(epoch):
+                metrics = step_fn(batch_to_device(seq, device), batch_to_device(flows, device))
                 running = running + metrics["loss"]
                 n_since += 1
                 it += 1
@@ -471,4 +532,47 @@ def train(cfg: Config, loader, params: Optional[dict] = None, device="cuda",
                     return clstm_to_params(model)
             save_checkpoint(os.path.join(ckdir, f"epoch_{epoch:02}.npz"), model)
             ck.save(model, optimizer, it, epoch + 1)
+
+            if cfg.eval_every_epochs > 0 and (epoch + 1) % cfg.eval_every_epochs == 0:
+                best_auc, evals_since_best, stop = _validate_epoch(
+                    cfg, model, device, ckdir, epoch, it, best_auc, evals_since_best,
+                    logger, log_fn)
+                if stop:
+                    logger.log("train_early_stop", epoch=epoch, iter=it, best_auc=best_auc)
+                    log_fn(f"early stop at epoch {epoch}: no validation AUC improvement in "
+                           f"{cfg.eval_patience} passes (best {best_auc:.4f} -> best.npz)")
+                    break
     return clstm_to_params(model)
+
+
+def _validate_epoch(cfg: Config, model: ConvLSTM, device, ckdir: str, epoch: int, it: int,
+                    best_auc: float, evals_since_best: int, logger, log_fn):
+    """One validation pass after an epoch (``cp360_tpu/train/loop.py:651-697``):
+    returns (best AUC, evals since best, stop).  The pass reads a host copy
+    of the weights and builds its own serving cell, so the trainable model
+    and the Adam state are not touched; a pass that raises is logged as
+    ``val_error`` and training goes on."""
+    from cp360_tpu_torch.train.validate import run_validation
+
+    params_host = clstm_to_params(model)
+    try:
+        agg = run_validation(params_host, cfg, device=device, log_fn=log_fn)
+    except Exception as e:  # noqa: BLE001 -- an opt-in side pass must not end training
+        logger.log("val_error", epoch=epoch, iter=it, error=f"{type(e).__name__}: {e}")
+        log_fn(f"validation pass failed (training continues): {type(e).__name__}: {e}")
+        return best_auc, evals_since_best, False
+    if agg is None:
+        return best_auc, evals_since_best, False
+    improved = agg["AUC"] > best_auc
+    os.makedirs(ckdir, exist_ok=True)
+    if improved:
+        best_auc, evals_since_best = agg["AUC"], 0
+        save_npz(os.path.join(ckdir, "best.npz"), params_host)
+    else:
+        evals_since_best += 1
+    with open(os.path.join(ckdir, "best_val.json"), "w") as f:
+        json.dump({"auc": best_auc, "evals_since_best": evals_since_best,
+                   "epoch": epoch, "iter": it}, f)
+    logger.log("val", epoch=epoch, iter=it, best=improved, **agg)
+    stop = cfg.eval_patience > 0 and evals_since_best >= cfg.eval_patience
+    return best_auc, evals_since_best, stop

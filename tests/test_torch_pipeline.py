@@ -245,7 +245,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_refusals_name_their_roadmap_item():
     """A refusal names the ROADMAP.md item that ports what it refuses
-    ("parallel", "trainer options", ...), never an item number, which a
+    ("parallel", "weight conversion CLI", ...), never an item number, which a
     renumbered queue would make wrong."""
     import re
 
@@ -253,6 +253,20 @@ def test_refusals_name_their_roadmap_item():
     for path in _port_files():
         text = path.read_text()
         assert not numbered.search(text), f"{path}: {numbered.search(text).group(0)}"
+    # .pth weights: the conversion CLI's item, never the JAX package's tool
+    import importlib
+
+    for cli, argv in (("extract_features", ["--weights", "w.pth"]),
+                      ("test_temporal", ["--model", "m.pth", "--dir", "d"]),
+                      ("serve", ["--weights", "w.pth"]),
+                      ("stream_saliency", ["--video", "v.mp4", "--backbone", "b.pth",
+                                           "--clstm", "c.npz", "--out", "o"])):
+        mod = importlib.import_module(f"cp360_tpu_torch.cli.{cli}")
+        with pytest.raises(NotImplementedError,
+                           match='w.pth|m.pth|b.pth') as ei:
+            mod.main(argv + ["--device", "cpu"])
+        assert 'ROADMAP.md, "weight conversion CLI"' in str(ei.value)
+        assert "cp360-convert" not in str(ei.value) and "JAX" not in str(ei.value)
 
 
 def test_kernel_sources_live_in_the_port():
