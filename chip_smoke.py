@@ -3,6 +3,7 @@
     python3 chip_smoke.py              # every phase (what a chip check runs)
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases options,stream
+    python3 chip_smoke.py --phases backbones
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -140,7 +141,33 @@ Phases, in order; any failure exits non-zero before the result lines:
      pairs of 480x960 with a profile of a Horn-Schunck solve, and a profile
      of a 16-frame stage-1 step with K3's row.
 
-7. stream: ``pipelines/stream.py`` and ``cli/stream_saliency.py`` at full
+7. backbones: every stage-1 backbone family at its full published width
+   (seeded weights, 1000 classes, 8 seeded natural-texture 960x1920
+   frames, 224 faces, ``host_cube_remap: false``).
+   - resnet18, resnet34, resnet101, resnet152, vgg16 and mobilenet_v2
+     through ``stage1_batch`` on the 8 frames in bf16 and f32: one K2
+     launch a batch, one K3 for the ResNets and none for vgg16 and
+     mobilenet_v2 (no stem pool), CAMs [8,6,7,7,1000]; card f32 against
+     the port's f32 on the CPU on the first frame within 2e-4 of max|CAM|
+     (TF32 off), card bf16 against card f32 within 0.02 of max|CAM| (the
+     video phase's limit); stage-1 ms at 8 frames in bf16 (CUDA events,
+     median of 5 after 2 warm-ups, frames already on the card) and its
+     profile (the device's busy time and idle share, the top kernels).
+   - resnet50: the bf16 default cube-conv form (``halo``), ``halo`` against
+     ``pad`` in f32 features (atol and rtol 1e-3,
+     ``tests/test_cube_pad.py:204-221``) and bf16 CAMs (0.02 of max), a
+     profile of both forms and their stage-1 ms, paired (pad, halo, halo,
+     pad).
+   - ``cli.convert_weights`` exports a seeded resnet101 ``.npz`` to
+     ``.pth`` and imports it back leaf for leaf; ``cli.extract_features
+     --mode resnet101 --max-frames 8`` on an e2e_full mp4 writes the same
+     CAMs bit for bit from the ``.pth`` as from the ``.npz``.
+   - ``SaliencyModel(arch="mobilenet_v2")`` answers 4 ``predict``
+     requests from 4 threads (K2 once a batch, no K3), and
+     ``stream_video_saliency`` with a vgg16 backbone (ConvLSTM 1000/1000,
+     bf16) streams a seeded 16-frame 960x1920 video (15 K1 a window batch,
+     no K2, no K3); then its frames/s (host clock, median of 3).
+8. stream: ``pipelines/stream.py`` and ``cli/stream_saliency.py`` at full
    width.
    - ``stream_video_saliency`` on ``tests/golden/e2e_full``'s mp4s with the
      golden's weights, f32: equal to ``cli.extract_features`` (host remap,
@@ -2046,6 +2073,256 @@ def phase_stream() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+BACKBONE_ARCHS = ("resnet18", "resnet34", "resnet101", "resnet152", "vgg16", "mobilenet_v2")
+BACKBONE_CPU_TOL = 2e-4  # card f32 vs the CPU's f32 CAMs, of max|ref|
+BACKBONE_BF16_TOL = 0.02  # card bf16 vs card f32 CAMs, of max (the video phase's limit)
+HALO_F32_TOL = 1e-3  # halo vs pad features, f32, atol and rtol (tests/test_cube_pad.py:204-221)
+
+
+def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    a, ref = a.float().cpu(), ref.float().cpu()
+    return float((a - ref).abs().max() / ref.abs().max())
+
+
+def close(a: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> bool:
+    return bool(torch.allclose(a.float().cpu(), ref.float().cpu(), atol=atol, rtol=rtol))
+
+
+def median_ms(fn, warmup: int = 2, iters: int = 5) -> float:
+    """Median device time of one call of ``fn`` (CUDA events around each
+    call, after ``warmup`` calls)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_backbones() -> dict:
+    """Every backbone family at full published width through
+    ``stage1_batch``, the resnet50 cube-conv forms, the
+    ``.pth`` round trip through the CLIs, and serving and the stream on
+    other families (8 seeded natural-texture 960x1920 frames, 224 faces,
+    1000 classes, all-device stage 1)."""
+    from cp360_tpu_torch.cli import convert_weights, extract_features
+    from cp360_tpu_torch.compat import jax_params
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.ops import equi_gather
+    from cp360_tpu_torch.pipelines.extract import IMAGENET_MEAN, IMAGENET_STD, stage1_batch
+    from cp360_tpu_torch.pipelines.stream import stream_video_saliency
+    from cp360_tpu_torch.serving.server import SaliencyModel
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_backbones_", dir=build))
+    stats = {"card": gpu_line()}
+    counted: dict = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    try:
+        rng = np.random.RandomState(SEED + 21)
+        frames = np.stack([natural_frame(960, 1920, rng) for _ in range(8)])
+        x8 = torch.from_numpy(frames).cuda()
+        x1_cpu = torch.from_numpy(frames[:1])
+
+        def run_stage1(model, x):
+            with torch.no_grad():
+                return stage1_batch(model, x)
+
+        # -- each family: bf16 and f32 on the card, f32 on the CPU (1 frame)
+        for arch in BACKBONE_ARCHS:
+            t0 = time.monotonic()
+            tree = jax_params.init_backbone_params(SEED, arch)
+            want_k3 = 1 if arch.startswith("resnet") else 0
+            out = {}
+            for dtype in (bf16, f32):
+                model = jax_params.backbone_from_params(tree, arch, True, dtype, "cuda")
+                (scores, sal), got = counted_run(counted, lambda: run_stage1(model, x8))
+                if got != {"cube_conv3x3": 0, "cube_conv3x3_dx": 0, "equi_to_cube": 1,
+                           "cube_pool3x3s2": want_k3}:
+                    fail(f"{arch} {dtype}: launches {got} for one stage-1 batch")
+                if tuple(scores.shape) != (8, 6, 7, 7, 1000) or tuple(sal.shape) != (8, 14, 28) \
+                        or not bool(torch.isfinite(scores).all()):
+                    fail(f"{arch} {dtype}: CAM {tuple(scores.shape)}, saliency "
+                         f"{tuple(sal.shape)}, finite {bool(torch.isfinite(scores).all())}")
+                out[dtype] = scores.cpu()
+                if dtype == bf16:
+                    stats[f"{arch}_stage1_ms"] = median_ms(lambda: run_stage1(model, x8))
+                    stats[f"{arch}_cube_conv_form"] = getattr(model, "cube_conv_form", None)
+                    prof = profile_step(lambda: run_stage1(model, x8), top=6)
+                    stats[f"{arch}_stage1_device_busy_ms"] = prof.get("device_busy_ms")
+                    print(f"backbones: {arch} stage 1, 8 frames, bf16, profile "
+                          f"{json.dumps(prof)}", flush=True)
+                del model
+            torch.cuda.empty_cache()
+            cpu_model = jax_params.backbone_from_params(tree, arch, True, f32, "cpu")
+            cpu_scores = run_stage1(cpu_model, x1_cpu)[0]
+            del cpu_model, tree
+            cpu_err = rel_err(out[f32][:1], cpu_scores)
+            bf16_err = rel_err(out[bf16], out[f32])
+            stats.update({f"{arch}_card_vs_cpu_f32": cpu_err, f"{arch}_bf16_vs_f32": bf16_err})
+            print(f"backbones: {arch}: CAM [8,6,7,7,1000]; K2 1, K3 {want_k3} launches a "
+                  f"batch; card f32 vs CPU f32 {cpu_err} (limit {BACKBONE_CPU_TOL}), bf16 vs "
+                  f"f32 {bf16_err} (limit {BACKBONE_BF16_TOL}) of max|CAM|; stage 1 at 8 frames "
+                  f"bf16 {stats[f'{arch}_stage1_ms']:.3f} ms; {time.monotonic() - t0:.1f} s",
+                  flush=True)
+            if not (cpu_err <= BACKBONE_CPU_TOL and bf16_err <= BACKBONE_BF16_TOL):
+                fail(f"{arch}: card f32 vs CPU {cpu_err}, bf16 vs f32 {bf16_err}")
+
+        # -- resnet50: halo vs pad
+        tree50 = jax_params.init_resnet_params(SEED, "resnet50")
+        default_form = jax_params.backbone_from_params(tree50, "resnet50", True, bf16,
+                                                       "cuda").cube_conv_form
+        mean = torch.tensor(IMAGENET_MEAN, device="cuda")
+        std = torch.tensor(IMAGENET_STD, device="cuda")
+        with torch.no_grad():
+            cubes = (equi_gather.equi_to_cube(x8[:2], 224) - mean) / std
+        feats, cams, m16 = {}, {}, {}
+        for form in ("pad", "halo"):
+            m32 = jax_params.resnet_from_params(tree50, "resnet50", True, f32, "cuda", form)
+            with torch.no_grad():
+                feats[form] = m32(cubes, with_logits=False)[1].cpu()
+            del m32
+            m16[form] = jax_params.resnet_from_params(tree50, "resnet50", True, bf16, "cuda",
+                                                      form)
+            cams[form], got = counted_run(counted,
+                                          lambda: run_stage1(m16[form], x8)[0].cpu())
+            if got["equi_to_cube"] != 1 or got["cube_pool3x3s2"] != 1:
+                fail(f"resnet50 {form}: launches {got}")
+            prof = profile_step(lambda: run_stage1(m16[form], x8), top=6)
+            stats[f"resnet50_{form}_stage1_device_busy_ms"] = prof.get("device_busy_ms")
+            print(f"backbones: resnet50 {form} stage 1, 8 frames, bf16, profile "
+                  f"{json.dumps(prof)}", flush=True)
+        # the two forms' stage-1 ms, paired: pad, halo, halo, pad
+        paired = {"pad": [], "halo": []}
+        for form in ("pad", "halo", "halo", "pad"):
+            paired[form].append(median_ms(lambda: run_stage1(m16[form], x8)))
+        for form, ms in paired.items():
+            stats[f"resnet50_{form}_stage1_ms"] = float(np.mean(ms))
+            stats[f"resnet50_{form}_stage1_ms_paired"] = ms
+        del m16
+        halo_f32_err = float((feats["halo"] - feats["pad"]).abs().max())
+        halo_ok = close(feats["halo"], feats["pad"], HALO_F32_TOL, HALO_F32_TOL)
+        halo_bf16 = rel_err(cams["halo"], cams["pad"])
+        stats.update(resnet50_bf16_default_form=default_form, halo_vs_pad_f32=halo_f32_err,
+                     halo_vs_pad_bf16=halo_bf16)
+        print(f"backbones: resnet50 bf16 default cube-conv form: {default_form}; halo vs pad "
+              f"f32 features max|diff| {halo_f32_err} (atol and rtol {HALO_F32_TOL}: {halo_ok}, "
+              f"max|feat| {float(feats['pad'].abs().max())}), bf16 CAMs {halo_bf16} of max "
+              f"(limit {BACKBONE_BF16_TOL}); stage 1 at 8 frames bf16: pad "
+              f"{stats['resnet50_pad_stage1_ms']:.3f} ms, halo "
+              f"{stats['resnet50_halo_stage1_ms']:.3f} ms", flush=True)
+        if default_form != "halo" or not halo_ok or halo_bf16 > BACKBONE_BF16_TOL:
+            fail("resnet50 cube-conv forms out of bounds")
+        del feats, cams, cubes
+        torch.cuda.empty_cache()
+
+        # -- weights: a seeded resnet101 .npz -> .pth -> .npz through the CLI,
+        # then the extraction CLI on an e2e_full mp4 with each file
+        tree101 = jax_params.init_resnet_params(SEED + 2, "resnet101")
+        npz, pth, back = tmp / "r101.npz", tmp / "r101.pth", tmp / "r101_back.npz"
+        jax_params.save_npz(str(npz), tree101)
+        rc = (convert_weights.main([str(npz), str(pth), "--arch", "resnet101"]),
+              convert_weights.main([str(pth), str(back), "--kind", "resnet",
+                                    "--arch", "resnet101"]))
+        a = jax_params.flatten_params(tree101)
+        b = jax_params.flatten_params(jax_params.load_npz(str(back)))
+        same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        print(f"backbones: convert_weights resnet101 .npz -> .pth -> .npz: rc {rc}, "
+              f"{len(a)} leaves equal: {same}", flush=True)
+        if rc != (0, 0) or not same:
+            fail("the resnet101 weights did not survive the .pth round trip")
+        del tree101, a, b
+        full = Golden("e2e_full", tmp / "full")
+        for vid in full.vids[1:]:  # one mp4
+            os.remove(full.root / "dataset" / "test" / f"{vid}.mp4")
+        vid = full.vids[0]
+        cwd = Path.cwd()
+        os.chdir(full.root)
+        try:
+            arts = {}
+            for name, w in (("npz", npz), ("pth", pth)):
+                _, got = counted_run(counted, lambda: extract_features.main(
+                    ["--device", "cuda", "--out", name, "--mode", "resnet101", "-of",
+                     "--weights", str(w), "--config", str(full.config), "--max-frames", "8"]))
+                d = full.root / "output" / f"{name}_resnet101" / vid / "cube_feat"
+                arts[name] = {f: np.load(d / f) for f in sorted(os.listdir(d))}
+                if got["equi_to_cube"] != 2 or got["cube_pool3x3s2"] != 2:
+                    fail(f"extract_features resnet101 ({name}): launches {got}")
+        finally:
+            os.chdir(cwd)
+        same = (sorted(arts["npz"]) == sorted(arts["pth"]) == [f"{i:06}.npy" for i in range(2, 9)]
+                and all(np.array_equal(arts["npz"][f], arts["pth"][f]) for f in arts["npz"]))
+        print(f"backbones: extract_features --mode resnet101 --max-frames 8 on {vid}.mp4: "
+              f"{len(arts['pth'])} CAM artifacts {arts['pth']['000002.npy'].shape} from the .pth "
+              f"equal to the .npz run bit for bit: {same}; K2 and K3 2 launches each", flush=True)
+        if not same:
+            fail("the .pth extraction differs from the .npz extraction")
+
+        # -- serving mobilenet_v2: 4 predict requests from 4 threads
+        cfg = Config(cube_dim=224, equi_h=1920, equi_w=960, compute_dtype="bfloat16",
+                     host_cube_remap=False, serve_max_batch=4, serve_batch_window_ms=5.0)
+        server = SaliencyModel(jax_params.init_mobilenet_v2_params(SEED + 3), cfg,
+                               arch="mobilenet_v2", device="cuda")
+        try:
+            server.warmup()
+            b0 = server._batcher.stats["batches"]
+            with ThreadPoolExecutor(max_workers=4) as pool:
+                preds, got = counted_run(counted, lambda: list(pool.map(server.predict, frames[:4])))
+            batches = server._batcher.stats["batches"] - b0
+        finally:
+            server.close()
+        ok = all(p.shape == (14, 28) and np.isfinite(p).all() for p in preds)
+        print(f"backbones: SaliencyModel(arch='mobilenet_v2') answered {len(preds)} predicts in "
+              f"{batches} stage-1 batches, maps (14, 28) finite: {ok}; launches {got}", flush=True)
+        if not ok or len(preds) != 4 or got["equi_to_cube"] != batches \
+                or got["cube_pool3x3s2"] or got["cube_conv3x3"]:
+            fail(f"mobilenet_v2 serving: launches {got} for {batches} batches")
+        del server
+
+        # -- the stream with a vgg16 backbone over a 16-frame 960x1920 video
+        video = tmp / "pan16.mp4"
+        write_video(video, 16, np.random.RandomState(SEED + 22))
+        scfg = Config(cube_dim=224, equi_h=1920, equi_w=960, input_size=1000, hidden_size=1000,
+                      seq_len=5, compute_dtype="bfloat16", clstm_conv_impl="pallas")
+        vgg = jax_params.backbone_from_params(jax_params.init_vgg16_params(SEED + 4), "vgg16",
+                                              True, bf16, "cuda")
+        cell = jax_params.clstm_from_params(jax_params.init_clstm_params(SEED + 5, 1000, 1000),
+                                            bf16, True, "pallas", "cuda")
+        maps, got = counted_run(counted, lambda: dict(stream_video_saliency(vgg, cell, str(video),
+                                                                           scfg)))
+        s1, wb = stream_batches(16, 8)
+        ok = sorted(maps) == list(range(4, 15)) and all(
+            m.shape == (14, 28) and np.isfinite(m).all() for m in maps.values())
+        print(f"backbones: stream_video_saliency with vgg16 on 16 frames: maps {sorted(maps)}, "
+              f"finite (14, 28): {ok}; launches {got} (want K1 {15 * wb}, no K2, no K3)",
+              flush=True)
+        if not ok or got["cube_conv3x3"] != 15 * wb or got["equi_to_cube"] \
+                or got["cube_pool3x3s2"]:
+            fail(f"vgg16 stream: maps {sorted(maps)}, launches {got}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            list(stream_video_saliency(vgg, cell, str(video), scfg))
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        stats.update(vgg16_stream_s_16_frames=times,
+                     vgg16_stream_frames_per_s=16 / float(np.median(times)))
+        print(f"backbones: vgg16 stream {stats['vgg16_stream_frames_per_s']:.2f} frames/s "
+              f"(16 frames, host clock, median of 3)", flush=True)
+        print(f"backbones: {json.dumps(stats)}", flush=True)
+        return counted
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def profile_step(fn, top: int = 12, match: str = "") -> dict:
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
     with the device's busy share of the call's host-clock wall time; rows
@@ -2078,9 +2355,10 @@ def profile_step(fn, top: int = 12, match: str = "") -> dict:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="build,kernels,slice,train,options,video,stream",
+    parser.add_argument("--phases",
+                        default="build,kernels,slice,train,options,video,backbones,stream",
                         help="comma-separated subset of build,kernels,slice,train,options,"
-                             "video,stream")
+                             "video,backbones,stream")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -2104,7 +2382,7 @@ def main(argv=None) -> None:
     by_path = {}
     for name, run in (("slice", phase_slice), ("train", phase_train),
                       ("options", phase_options), ("video", phase_video),
-                      ("stream", phase_stream)):
+                      ("backbones", phase_backbones), ("stream", phase_stream)):
         if name in phases:
             t0 = time.monotonic()
             by_path[name] = run()

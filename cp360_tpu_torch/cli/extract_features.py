@@ -2,24 +2,25 @@
 on one GPU.
 
     python -m cp360_tpu_torch.cli.extract_features --config config.yaml \
-        --out static -of [-oi] [-om] [--weights resnet50.npz] [--max-frames N] \
-        [--device cuda|cpu] [--set FIELD=VALUE ...]
+        --out static -of [-oi] [-om] [--mode ARCH] [--weights W.npz|W.pth] \
+        [--max-frames N] [--device cuda|cpu] [--set FIELD=VALUE ...]
 
 The port of ``cp360_tpu/cli/extract_features.py`` (reference driver
 static_model/dataset_feat_extractor.py: flags -oi/-of/-om, --out, --mode;
 videos ``<data_vid_path>/{test,train}/<vid>.mp4`` from the built-in
 test_25/train_60 splits, chosen by ``test_mode``/``train_mode``).
 Artifacts go to ``<output_path>/<out>_<mode>/<vid>/``; a rerun resumes
-where the artifacts stop.  Weights are the JAX package's ``.npz``
-(compat/jax_params.py); without ``--weights`` the backbone is randomly
+where the artifacts stop.  ``--mode`` picks the backbone: resnet18, 34,
+50, 101 or 152, vgg16 or mobilenet_v2.  Weights are the JAX package's
+``.npz`` or a torchvision-layout ``.pth`` (compat/torch_weights.py
+``load_params``); without ``--weights`` the backbone is randomly
 initialized from a seed (demo only).  ``-om`` with ``opt_flow: true``
 writes the optical flow (``flow_backend``; the device backends solve on
 the extraction's device); ``host_cube_remap: true`` with ``upload_format:
 yuv420`` uploads 4:2:0 planes.  ``--supervise`` runs the extraction as a
 child that is restarted when it stalls or crashes (a rerun resumes).
 Extraction runs on the card; without one it exits unless ``--device cpu``
-is given.  Not ported, and refused: ``--data-parallel``, ``.pth`` weights
-and archs other than resnet50.
+is given.  Not ported, and refused: ``--data-parallel``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ def main(argv=None):
     import torch
 
     from cp360_tpu_torch.compat import jax_params
+    from cp360_tpu_torch.compat.torch_weights import load_params
     from cp360_tpu_torch.config import add_config_overrides, config_from_args
     from cp360_tpu_torch.data.dataset import builtin_split
     from cp360_tpu_torch.pipelines.extract import check_extract_config, extract_video
@@ -44,7 +46,7 @@ def main(argv=None):
     parser.add_argument("-oi", "--output_img", action="store_true")
     parser.add_argument("-of", "--output_feature", action="store_true")
     parser.add_argument("-om", "--output_motion", action="store_true")
-    parser.add_argument("--weights", type=str, default=None, help=".npz backbone weights")
+    parser.add_argument("--weights", type=str, default=None, help=".npz or .pth backbone weights")
     parser.add_argument("--max-frames", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--data-parallel", type=int, default=None, help="not ported")
@@ -63,13 +65,9 @@ def main(argv=None):
         raise NotImplementedError(
             "--data-parallel is not ported to cp360_tpu_torch yet (the port extracts on one "
             'card); see ROADMAP.md, "parallel"')
-    if args.mode != "resnet50":
-        raise NotImplementedError(
-            f"--mode {args.mode!r} is not ported yet (ported: resnet50); see "
-            'ROADMAP.md, "resnet18/34/101/152" and "vgg16-bn and mobilenet_v2"')
+    if args.mode not in jax_params.BACKBONES:
+        raise ValueError(f"unknown --mode {args.mode!r} (one of {jax_params.BACKBONES})")
     check_extract_config(cfg, args.output_motion)
-    if args.weights:
-        jax_params.require_npz(args.weights)
     if args.supervise is not None:
         from cp360_tpu_torch.utils.supervise import run_supervised
 
@@ -80,14 +78,10 @@ def main(argv=None):
 
     for k, v in sorted(dataclasses.asdict(cfg).items()):
         print(f"\t{k} : {v}")
-    if args.weights:
-        params = jax_params.load_npz(args.weights)
-    else:
-        print("WARNING: no --weights given; using random init (demo only)")
-        params = jax_params.init_resnet_params(0, args.mode)
+    params = load_params(args.weights, args.mode)
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    model = jax_params.resnet_from_params(params, args.mode, cfg.cube_pad,
-                                          compute_dtype, device)
+    model = jax_params.backbone_from_params(params, args.mode, cfg.cube_pad,
+                                            compute_dtype, device)
     del params
     out_path = os.path.join(cfg.output_path, f"{args.out}_{args.mode}")
     os.makedirs(out_path, exist_ok=True)

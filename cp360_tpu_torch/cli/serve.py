@@ -1,12 +1,13 @@
 """Serving CLI: long-lived HTTP saliency inference on one GPU.
 
-    python -m cp360_tpu_torch.cli.serve --weights resnet50.npz \
-        [--clstm CLSTM.npz] [--host 0.0.0.0] [--port 8360] [--config config.yaml] \
-        [--device cuda|cpu]
+    python -m cp360_tpu_torch.cli.serve --weights W.npz|W.pth [--mode ARCH] \
+        [--clstm CLSTM.npz|CLSTM.pth] [--host 0.0.0.0] [--port 8360] \
+        [--config config.yaml] [--device cuda|cpu]
 
-Weights are the JAX package's ``.npz`` checkpoints (compat/jax_params.py);
-without ``--weights`` the backbone is randomly initialized from a seed (demo
-only).  POST an equirectangular JPEG/PNG to /saliency (add ?format=png for a
+``--mode`` picks the backbone (resnet18/34/50/101/152, vgg16,
+mobilenet_v2).  Weights are the JAX package's ``.npz`` checkpoints or
+torch ``.pth`` files (compat/torch_weights.py); without ``--weights`` the
+backbone is randomly initialized from a seed (demo only).  POST an equirectangular JPEG/PNG to /saliency (add ?format=png for a
 heatmap image); GET /healthz for liveness.  With --clstm, streaming temporal
 sessions are served on /temporal/{session,frame,close} — see
 cp360_tpu_torch/serving/server.py.  The server runs on the card; without
@@ -20,13 +21,14 @@ import argparse
 
 def main(argv=None):
     from cp360_tpu_torch.compat import jax_params
+    from cp360_tpu_torch.compat.torch_weights import load_clstm, load_params
     from cp360_tpu_torch.config import add_config_overrides, config_from_args
     from cp360_tpu_torch.serving.server import SaliencyModel, resolve_device, serve
 
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--weights", type=str, default=None, help=".npz backbone")
+    parser.add_argument("--weights", type=str, default=None, help=".npz or .pth backbone")
     parser.add_argument("--clstm", type=str, default=None,
-                        help=".npz ConvLSTM — enables /temporal streaming")
+                        help=".npz or .pth ConvLSTM — enables /temporal streaming")
     parser.add_argument("--mode", type=str, default="resnet50")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8360)
@@ -37,17 +39,12 @@ def main(argv=None):
         print(f"WARNING: ignoring unrecognized arguments: {' '.join(unknown)} "
               "(config fields go through --set FIELD=VALUE)")
     cfg = config_from_args(args)
+    if args.mode not in jax_params.BACKBONES:
+        raise ValueError(f"unknown --mode {args.mode!r} (one of {jax_params.BACKBONES})")
     device = resolve_device(args.device)  # before loading weights: fail fast
 
-    for path in (args.weights, args.clstm):
-        if path:
-            jax_params.require_npz(path)
-    if args.weights:
-        params = jax_params.load_npz(args.weights)
-    else:
-        print("WARNING: no --weights given; using random init (demo only)")
-        params = jax_params.init_resnet_params(0, args.mode)
-    clstm_params = jax_params.load_npz(args.clstm) if args.clstm else None
+    params = load_params(args.weights, args.mode)
+    clstm_params = load_clstm(args.clstm) if args.clstm else None
     model = SaliencyModel(params, cfg, arch=args.mode, clstm_params=clstm_params,
                           device=device)
     httpd = serve(model, host=args.host, port=args.port)

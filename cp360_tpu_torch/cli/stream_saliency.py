@@ -2,7 +2,7 @@
 one GPU.
 
     python -m cp360_tpu_torch.cli.stream_saliency --video v.mp4 \
-        --backbone resnet50.npz --clstm CLSTM.npz --out outdir \
+        --backbone BB.npz|BB.pth --clstm CLSTM.npz|CLSTM.pth --out outdir [--arch ARCH] \
         [--max-frames N] [--stage1-batch 8] [--overlay] [--resume] \
         [--supervise [STALL_S]] [--device cuda|cpu] [--config config.yaml] \
         [--set FIELD=VALUE ...]
@@ -14,11 +14,11 @@ window, numbered as the offline pipeline numbers its maps, so
 ``eval_saliency`` scores either.  ``--overlay`` also writes
 ``<out>/overlay/{frame:05}.jpg``; ``--resume`` continues at the first
 missing map; ``--supervise`` runs the job as a child that is restarted
-with ``--resume`` when it stalls or crashes.  Weights are the JAX
-package's ``.npz`` (compat/jax_params.py).  The stream runs on the card;
-without one it exits unless ``--device cpu`` is given.  Not ported, and
-refused: ``.pth`` weights, archs other than resnet50 and
-``pipeline_stages`` above 1.
+with ``--resume`` when it stalls or crashes.  ``--arch`` picks the
+backbone (resnet18/34/50/101/152, vgg16, mobilenet_v2).  Weights are the
+JAX package's ``.npz`` or torch ``.pth`` files (compat/torch_weights.py).
+The stream runs on the card; without one it exits unless ``--device cpu``
+is given.  Not ported, and refused: ``pipeline_stages`` above 1.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ def main(argv=None):
     import torch
 
     from cp360_tpu_torch.compat import jax_params
+    from cp360_tpu_torch.compat.torch_weights import load_clstm, load_params
     from cp360_tpu_torch.config import add_config_overrides, config_from_args
     from cp360_tpu_torch.serving.server import resolve_device
 
@@ -40,8 +41,8 @@ def main(argv=None):
     # strip_supervise_flag and nest supervisors in the child
     parser = argparse.ArgumentParser(description=__doc__, allow_abbrev=False)
     parser.add_argument("--video", type=str, required=True)
-    parser.add_argument("--backbone", type=str, required=True, help=".npz backbone weights")
-    parser.add_argument("--clstm", type=str, required=True, help=".npz ConvLSTM weights")
+    parser.add_argument("--backbone", type=str, required=True, help=".npz or .pth backbone weights")
+    parser.add_argument("--clstm", type=str, required=True, help=".npz or .pth ConvLSTM weights")
     parser.add_argument("--out", type=str, required=True, help="output dir for saliency .npy")
     parser.add_argument("--arch", type=str, default="resnet50")
     parser.add_argument("--max-frames", type=int, default=None)
@@ -64,11 +65,8 @@ def main(argv=None):
         print(f"WARNING: ignoring unrecognized arguments: {' '.join(unknown)} "
               "(config fields go through --set FIELD=VALUE)")
     cfg = config_from_args(args)
-    if args.arch != "resnet50":
-        raise NotImplementedError(f"--arch {args.arch!r} is not ported yet (ported: resnet50); "
-                                  'see ROADMAP.md, "resnet18/34/101/152"')
-    for path in (args.backbone, args.clstm):
-        jax_params.require_npz(path)
+    if args.arch not in jax_params.BACKBONES:
+        raise ValueError(f"unknown --arch {args.arch!r} (one of {jax_params.BACKBONES})")
     if args.supervise is not None:
         from cp360_tpu_torch.utils.supervise import run_supervised
 
@@ -91,9 +89,9 @@ def main(argv=None):
         if start_output > cfg.seq_len - 1:
             print(f"resume: maps before {start_output:05} exist; continuing there")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    model = jax_params.resnet_from_params(jax_params.load_npz(args.backbone), args.arch,
-                                          cfg.cube_pad, dtype, device)
-    cell = jax_params.clstm_from_params(jax_params.load_npz(args.clstm), dtype, cfg.cube_pad,
+    model = jax_params.backbone_from_params(load_params(args.backbone, args.arch), args.arch,
+                                            cfg.cube_pad, dtype, device)
+    cell = jax_params.clstm_from_params(load_clstm(args.clstm), dtype, cfg.cube_pad,
                                         cfg.clstm_conv_impl, device)
     stream = stream_video_saliency(model, cell, args.video, cfg, stage1_batch=args.stage1_batch,
                                    max_frames=args.max_frames, start_output=start_output)

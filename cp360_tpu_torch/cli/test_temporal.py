@@ -1,7 +1,7 @@
 """Stage-2 CLI: temporal inference + evaluation against Wild-360 GT, on one
 GPU.
 
-    python -m cp360_tpu_torch.cli.test_temporal --model CLSTM.npz \
+    python -m cp360_tpu_torch.cli.test_temporal --model CLSTM.npz|CLSTM.pth \
         --dir output/static_resnet50 [--overlay] [--batch-windows 64] [--resume] \
         [--device cuda|cpu] [--config config.yaml] [--set FIELD=VALUE ...]
 
@@ -12,8 +12,9 @@ the window predictions to ``<output_path>/temporal/<vid>/NNNNN.npy``,
 scores them against ``<label_path>/<vid>.mp4/NNNNN.npy`` and writes the
 reference-compatible ``<basename of --dir>_result.txt`` (in the working
 directory) with the frame-weighted aggregate.  ``--model`` is a ``.npz``
-(the JAX package's format; ``.pth`` waits for ROADMAP.md's "weight
-conversion CLI"); a bare name is looked up under ``checkpoint_path``.
+(the JAX package's format) or the reference's ``.pth``
+(compat/torch_weights.py); a bare name is looked up under
+``checkpoint_path``.
 ``--resume`` skips videos whose ``_done.npz`` marker says maps, overlays
 and metrics completed, and their cached metrics still enter the
 aggregate; ``--supervise`` runs the job as a child that is restarted with
@@ -33,14 +34,15 @@ import numpy as np
 def main(argv=None):
     import torch
 
-    from cp360_tpu_torch.compat.jax_params import clstm_from_params, load_npz, require_npz
+    from cp360_tpu_torch.compat.jax_params import clstm_from_params
+    from cp360_tpu_torch.compat.torch_weights import load_clstm
     from cp360_tpu_torch.config import add_config_overrides, config_from_args
     from cp360_tpu_torch.data.dataset import builtin_split
     from cp360_tpu_torch.pipelines.temporal import aggregate
     from cp360_tpu_torch.serving.server import resolve_device
 
     parser = argparse.ArgumentParser(description=__doc__, allow_abbrev=False)
-    parser.add_argument("--model", type=str, required=True, help="CLSTM .npz")
+    parser.add_argument("--model", type=str, required=True, help="CLSTM .npz or .pth")
     parser.add_argument("--dir", type=str, required=True, help="stage-1 artifact root")
     parser.add_argument("--overlay", action="store_true", help="write overlay jpgs")
     parser.add_argument("--batch-windows", type=int, default=64)
@@ -68,7 +70,6 @@ def main(argv=None):
     if cfg.transfer_codec not in ("none", "int8"):
         raise ValueError(f"transfer_codec={cfg.transfer_codec!r} is not one of "
                          "'none', 'int8'")
-    require_npz(args.model)
     if args.supervise is not None:
         from cp360_tpu_torch.utils.supervise import run_supervised
 
@@ -81,7 +82,7 @@ def main(argv=None):
     if not os.path.exists(model_path):
         model_path = os.path.join(cfg.checkpoint_path, args.model)
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    cell = clstm_from_params(load_npz(model_path), compute_dtype, cfg.cube_pad,
+    cell = clstm_from_params(load_clstm(model_path), compute_dtype, cfg.cube_pad,
                              cfg.clstm_conv_impl, device)
 
     vids = [v for v in builtin_split("test_25")

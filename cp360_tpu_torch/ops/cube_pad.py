@@ -12,7 +12,8 @@ it once per shape as an int32 map ``src[6, H+pt+pd, W+pl+pr]`` into the
 flattened [6*H*W] face-pixel axis, by running the neighbour-strip
 slice/flip/transpose logic on an array of linear indices; the runtime op is
 one ``index_select``.  The same map is the source table of the fused
-cube-pad conv kernel (ops/cube_conv.py).
+cube-pad conv kernel (ops/cube_conv.py) and of the halo strips of
+:func:`cube_pad_conv3x3`.
 
 The map builder is the port's own NumPy copy of
 ``cp360_tpu/ops/cube_pad.py::build_cube_pad_index_map``; the tests hold the
@@ -22,7 +23,7 @@ two equal.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -195,6 +196,17 @@ def cube_pad(x: torch.Tensor, lrtd_pad: Pads) -> torch.Tensor:
     return out[0] if squeeze else out
 
 
+def cube_pad_nchw(x: torch.Tensor, lrtd_pad: Pads) -> torch.Tensor:
+    """The reference module's call shape: [6N, C, H, W] face-major batches
+    (model/cube_pad.py:28-42) -> padded [6N, C, H', W']
+    (``cp360_tpu/ops/cube_pad.py:296``).  New code uses :func:`cube_pad`."""
+    n6, c, h, w = x.shape
+    if n6 % 6:
+        raise ValueError(f"batch {n6} is not a multiple of 6 faces")
+    out = cube_pad(x.reshape(n6 // 6, 6, c, h, w).permute(0, 1, 3, 4, 2), lrtd_pad)
+    return out.permute(0, 1, 4, 2, 3).reshape(n6, c, *out.shape[2:4])
+
+
 def zero_pad(x: torch.Tensor, lrtd_pad: Pads) -> torch.Tensor:
     """Zero-padding ablation baseline (config key ``cube_pad: false``).
     Same signature as :func:`cube_pad`; pads the two spatial axes."""
@@ -219,3 +231,97 @@ def cube_pad_max_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
     from cp360_tpu_torch.ops import cube_pool  # imports this module
 
     return cube_pool.cube_pad_max_pool_3x3s2(x)
+
+
+CUBE_CONV_FORMS = ("pad", "halo")
+
+
+@lru_cache(maxsize=64)
+def _halo_ring(h: int, stride: int, device: torch.device) -> torch.Tensor:
+    """The halo strips of a pad-1 cube conv as one index into the flat
+    [6*h*h] face-pixel axis, ordered (face, position, strip) so that the
+    gather is a [6, h+2, strips] stack: the top row with its corners, the
+    left column, and at stride 1 the bottom row and the right column.  The
+    columns' two end positions point at their corner pixels; the caller
+    zeroes them."""
+    m = build_cube_pad_index_map(h, h, 1)  # [6, h+2, h+2]
+    strips = [m[:, 0, :], m[:, :, 0]]
+    if stride == 1:
+        strips += [m[:, h + 1, :], m[:, :, h + 1]]
+    ring = np.stack(strips, axis=2).reshape(-1).astype(np.int64)
+    return torch.from_numpy(ring).to(device)
+
+
+def halo_kernel(w: torch.Tensor, stride: int) -> torch.Tensor:
+    """The halo strips' 1x3 kernels w[0, :], w[:, 0] and, at stride 1,
+    w[2, :], w[:, 2], as one grouped HWIO kernel [1, 3, C, strips*Co]: a
+    view of OIHW channels_last storage, as the backbones hold their
+    kernels.  w: [3, 3, C, Co] HWIO."""
+    o = w.permute(3, 0, 1, 2)  # [Co, 3, 3, C]
+    taps = [o[:, 0:1], o[:, :, 0:1].transpose(1, 2), o[:, 2:3], o[:, :, 2:3].transpose(1, 2)]
+    return torch.cat(taps[:4 if stride == 1 else 2]).permute(1, 2, 3, 0)
+
+
+def cube_pad_conv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                     compute_dtype=None, form: str = "pad",
+                     w_halo: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv2d(cube_pad(x, 1), w, stride, VALID)``, the Bottleneck's cube
+    conv (reference model/resnet_cubic.py:92-93), in one of two forms
+    (``cp360_tpu/ops/cube_pad.py:617-713``).
+
+    ``pad``: cube pad, then a VALID conv.
+
+    ``halo``: one zero-padding conv over the raw faces (the interior is
+    exact, since the zero taps add nothing), plus thin convs over the halo
+    strips added onto the border ring:
+
+      out[0, j]  += sum_b w[0, b] * halo_top[j*s + b]       (1x3, corners in)
+      out[i, 0]  += sum_a w[a, 0] * halo_left[i*s + a - 1] (3x1, zero-ended)
+      out[-1, j] += sum_b w[2, b] * halo_bottom[j + b]     (stride 1 only)
+      out[i, -1] += sum_a w[a, 2] * halo_right[i + a - 1]  (stride 1 only)
+
+    At stride 2 on even H the bottom row and right column of the padded
+    input are never read, so only the top and left strips are gathered.
+    The strips come off the pad-1 index map in one ``index_select``, and
+    all the strip convs run as one grouped 1x3 conv (a group a strip).
+    Each conv rounds at its store and the four adds run in the output
+    dtype in the JAX package's order: the border ring's sum is
+    reassociated, so ``halo`` matches ``pad`` to f32 reassociation error,
+    or about one bf16 ulp.
+
+    x: [N, 6, H, W, C] (H = W); w: [3, 3, C, Co] HWIO; ``w_halo``:
+    ``halo_kernel(w, stride)``, made here when not given.  Returns
+    [N, 6, H/stride, W/stride, Co].
+    """
+    from cp360_tpu_torch.models import layers  # imports this module
+
+    if form not in CUBE_CONV_FORMS:
+        raise ValueError(f"unknown cube-conv form {form!r} (one of {CUBE_CONV_FORMS})")
+    _check_cube(x)
+    n, _, h, wd, c = x.shape
+    if tuple(w.shape[:2]) != (3, 3) or stride not in (1, 2) or (stride == 2 and h % 2):
+        raise ValueError(f"cube_pad_conv3x3 takes a 3x3 kernel at stride 1, or 2 on even "
+                         f"faces: kernel {tuple(w.shape)}, stride {stride}, faces {h}")
+    if form == "pad":
+        xp = cube_pad(x, 1).reshape(n * 6, h + 2, wd + 2, c)
+        out = layers.conv2d(xp, w, stride=stride, compute_dtype=compute_dtype)
+        return out.reshape(n, 6, *out.shape[1:])
+
+    out = layers.conv2d(x.reshape(n * 6, h, wd, c), w, stride=stride,
+                        padding=((1, 1), (1, 1)), compute_dtype=compute_dtype)
+    g = 4 if stride == 1 else 2
+    halo = x.reshape(n, 6 * h * wd, c).index_select(1, _halo_ring(h, stride, x.device))
+    halo = halo.reshape(n * 6, h + 2, g, c)
+    halo[:, ::h + 1, 1::2] = 0  # the columns' ends: their corners are the rows'
+    if w_halo is None:
+        w_halo = halo_kernel(w, stride)
+    corr = layers.conv2d(halo.reshape(n * 6, 1, h + 2, g * c), w_halo,
+                         stride=(1, stride), compute_dtype=compute_dtype, groups=g)
+    corr = corr.reshape(n * 6, h // stride, g, -1)
+    # add_ on views: ``out[...] += c`` would also run a __setitem__ a time
+    out[:, 0].add_(corr[:, :, 0])
+    out[:, :, 0].add_(corr[:, :, 1])
+    if stride == 1:
+        out[:, -1].add_(corr[:, :, 2])
+        out[:, :, -1].add_(corr[:, :, 3])
+    return out.reshape(n, 6, *out.shape[1:])

@@ -6,9 +6,10 @@ from u8 equirectangular frames) and ``stage1_batch_faces`` (:40, from faces
 sampled on the host, with the optional int8 transfer codec).  Everything
 between the decoded frame and the saliency map runs on the device:
 equi->cube (the hand kernel of ops/equi_gather.py, with the /255 fused),
-ImageNet normalization, the cube-padded ResNet CAM (its stem pool is the
-hand kernel of ops/cube_pool.py), cube->equi and the squared channel max
-(dataset_feat_extractor.py:173-176).
+ImageNet normalization, the CAM of any cube-padded backbone
+(``models.cam.Backbone``: a ResNet, whose stem pool is the hand kernel of
+ops/cube_pool.py, VGG16-BN or MobileNetV2), cube->equi and the squared
+channel max (dataset_feat_extractor.py:173-176).
 
 :func:`extract_frames` is the batch loop of ``extract_video`` (:388) over
 any iterable of decoded BGR frames; :func:`extract_video` feeds it from
@@ -47,8 +48,7 @@ import torch
 from cp360_tpu_torch.config import Config
 from cp360_tpu_torch.flow import optical_flow
 from cp360_tpu_torch.geometry import build_equi2cube_maps
-from cp360_tpu_torch.models.cam import cam_forward
-from cp360_tpu_torch.models.resnet import ResNet
+from cp360_tpu_torch.models.cam import Backbone, cam_forward
 from cp360_tpu_torch.ops import equi_gather
 from cp360_tpu_torch.ops.quantize import dequantize_cam_np, quantize_cam
 from cp360_tpu_torch.ops.resample import cube_to_equi
@@ -58,7 +58,7 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def _cam_and_saliency(model: ResNet, cubes01: torch.Tensor):
+def _cam_and_saliency(model: Backbone, cubes01: torch.Tensor):
     """(f32 score cube [N, 6, h, w, K], saliency [N, 2h, 4w])."""
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=cubes01.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=cubes01.device)
@@ -69,7 +69,7 @@ def _cam_and_saliency(model: ResNet, cubes01: torch.Tensor):
     return scores, sal
 
 
-def stage1_batch(model: ResNet, frames_u8: torch.Tensor, cube_dim: int = 224,
+def stage1_batch(model: Backbone, frames_u8: torch.Tensor, cube_dim: int = 224,
                  out_dtype: torch.dtype = torch.float32):
     """Device step for a batch of frames: u8 equi -> (CAM, saliency).
 
@@ -87,7 +87,7 @@ def stage1_batch(model: ResNet, frames_u8: torch.Tensor, cube_dim: int = 224,
     return scores.to(out_dtype), sal
 
 
-def stage1_batch_faces(model: ResNet, faces_u8: torch.Tensor,
+def stage1_batch_faces(model: Backbone, faces_u8: torch.Tensor,
                        out_dtype: torch.dtype = torch.float16, codec: str = "none"):
     """Device step from cube faces sampled on the host.
 
@@ -186,7 +186,7 @@ def _device_yuv420_to_rgb01(y_u8: torch.Tensor, uv_u8: torch.Tensor) -> torch.Te
     return torch.clamp(rgb, 0.0, 255.0) / 255.0
 
 
-def stage1_batch_faces_yuv(model: ResNet, y_u8: torch.Tensor, uv_u8: torch.Tensor,
+def stage1_batch_faces_yuv(model: Backbone, y_u8: torch.Tensor, uv_u8: torch.Tensor,
                            out_dtype: torch.dtype = torch.float16, codec: str = "none"):
     """:func:`stage1_batch_faces` fed by 4:2:0 planes
     (``cp360_tpu/pipelines/extract.py:249``).
@@ -283,7 +283,7 @@ def _resize_frame(frame_bgr: np.ndarray, cfg: Config) -> np.ndarray:
     return np.asarray(img, dtype=np.uint8)
 
 
-def _model_device(model: ResNet) -> torch.device:
+def _model_device(model: Backbone) -> torch.device:
     return next(iter(model.buffers())).device
 
 
@@ -297,7 +297,7 @@ def _to_device(arrays, device: torch.device, pin: bool):
     return host.to(device, non_blocking=True), host
 
 
-def extract_frames(model: ResNet, cfg: Config, frames: Iterable[np.ndarray], out_dir: str,
+def extract_frames(model: Backbone, cfg: Config, frames: Iterable[np.ndarray], out_dir: str,
                    output_img: bool = True, output_feature: bool = True,
                    output_motion: bool = False, max_frames: Optional[int] = None,
                    name: str = "frames") -> int:
@@ -454,7 +454,7 @@ def _video_frames(cap, total: int) -> Iterator[np.ndarray]:
         yield frame
 
 
-def extract_video(model: ResNet, cfg: Config, vid_path: str, out_dir: str,
+def extract_video(model: Backbone, cfg: Config, vid_path: str, out_dir: str,
                   output_img: bool = True, output_feature: bool = True,
                   output_motion: bool = False, max_frames: Optional[int] = None) -> int:
     """:func:`extract_frames` over the frames ``cv2.VideoCapture`` decodes

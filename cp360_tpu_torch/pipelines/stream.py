@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from cp360_tpu_torch.config import Config
+from cp360_tpu_torch.models.cam import Backbone
 from cp360_tpu_torch.models.clstm import ConvLSTM
-from cp360_tpu_torch.models.resnet import ResNet
 from cp360_tpu_torch.pipelines.extract import (
     _model_device, _resize_frame, _to_device, host_faces_for_upload, stage1_batch_faces,
     stage1_batch_faces_yuv)
@@ -36,12 +36,13 @@ from cp360_tpu_torch.pipelines.temporal import window_infer_from_frames
 REMAP_WORKERS = 4  # host threads cube-sampling decoded frames (cv2 drops the GIL)
 
 
-def stream_video_saliency(model: ResNet, cell: ConvLSTM, vid_path: str, cfg: Config,
+def stream_video_saliency(model: Backbone, cell: ConvLSTM, vid_path: str, cfg: Config,
                           stage1_batch: int = 8, max_frames: Optional[int] = None,
                           start_output: int = 0) -> Iterator[Tuple[int, np.ndarray]]:
     """Stream temporal saliency maps for a video, on the device of ``model``
-    and ``cell`` (``compat/jax_params.py`` builds them from the JAX
-    package's param trees).
+    (any backbone family) and ``cell`` (``compat/jax_params.py`` builds
+    them from the JAX package's param trees, ``backbone_from_params`` for
+    the backbone).
 
     Equivalent to extract_features (with ``host_cube_remap``, f16 feats) ->
     test_temporal on the same video, with the CAM cubes never leaving the
@@ -72,7 +73,7 @@ def stream_video_saliency(model: ResNet, cell: ConvLSTM, vid_path: str, cfg: Con
     return _stream_frames(model, cell, cfg, stage1_batch, cap, total, start_output)
 
 
-def _stream_frames(model: ResNet, cell: ConvLSTM, cfg: Config, stage1_batch: int, cap,
+def _stream_frames(model: Backbone, cell: ConvLSTM, cfg: Config, stage1_batch: int, cap,
                    total: int, start_output: int):
     seq_len = cfg.seq_len
     keep = seq_len - 1

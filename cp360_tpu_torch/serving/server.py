@@ -133,8 +133,9 @@ class SaliencyModel:
     sessions) on one device; thread-safe predict()/temporal_*().
 
     Args:
-      params: the JAX package's ResNet param tree (numpy leaves), carried
-        across by compat/jax_params.py.
+      params: the JAX package's param tree of the backbone family ``arch``
+        (numpy leaves; resnet18/34/50/101/152, vgg16 or mobilenet_v2),
+        carried across by compat/jax_params.py.
       cfg: the serving configuration.
       clstm_params: the ConvLSTM param tree; enables temporal sessions.
       device: "cuda" (default; raises without a card) or "cpu".
@@ -142,10 +143,7 @@ class SaliencyModel:
 
     def __init__(self, params: dict, cfg: Config, arch: str = "resnet50",
                  clstm_params: dict | None = None, device="cuda"):
-        from cp360_tpu_torch.compat.jax_params import (
-            clstm_from_params,
-            resnet_from_params,
-        )
+        from cp360_tpu_torch.compat.jax_params import backbone_from_params, clstm_from_params
         from cp360_tpu_torch.serving.batcher import DynamicBatcher
 
         if cfg.mesh_data > 1:
@@ -162,8 +160,8 @@ class SaliencyModel:
         self.arch = arch
         self.compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                               else torch.float32)
-        self.model = resnet_from_params(params, arch, cfg.cube_pad,
-                                        self.compute_dtype, self.device)
+        self.model = backbone_from_params(params, arch, cfg.cube_pad,
+                                          self.compute_dtype, self.device)
         self.clstm = None
         if clstm_params is not None:
             self.clstm = clstm_from_params(clstm_params, self.compute_dtype,

@@ -117,8 +117,12 @@ def test_seeded_init_has_the_jax_structure():
     for name in ("conv1", "conv2", "gates"):
         for k in ("w", "b"):
             assert c_mine[name][k].shape == c_theirs[name][k].shape
-    with pytest.raises(NotImplementedError):
-        jax_params.init_resnet_params(0, "resnet18")
+    mine18 = jax_params.init_resnet_params(0, "resnet18")  # BasicBlocks: conv1, conv2
+    theirs18 = jax.eval_shape(lambda k: jax_init_resnet(k, "resnet18"), jax.random.PRNGKey(0))
+    assert (jax.tree_util.tree_structure(mine18)
+            == jax.tree_util.tree_structure(theirs18))
+    for a, b in zip(jax.tree_util.tree_leaves(mine18), jax.tree_util.tree_leaves(theirs18)):
+        assert a.shape == b.shape and a.dtype == np.float32
 
 
 def test_npz_written_by_jax_loads(tmp_path):

@@ -243,30 +243,36 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 assert name.split(".")[0] not in banned, f"{path}: imports {name}"
 
 
-def test_refusals_name_their_roadmap_item():
+def test_refusals_name_their_roadmap_item(tmp_path, monkeypatch):
     """A refusal names the ROADMAP.md item that ports what it refuses
-    ("parallel", "weight conversion CLI", ...), never an item number, which a
-    renumbered queue would make wrong."""
+    ("parallel"), never an item number, which a renumbered queue would make
+    wrong.  ``.pth`` weights are no longer refused: each CLI reads the file
+    it is given (tests/test_torch_convert.py holds what they compute)."""
+    import importlib
     import re
 
     numbered = re.compile(r"ROADMAP[^\n]{0,40}(queue|item)s? *\d", re.I)
     for path in _port_files():
         text = path.read_text()
         assert not numbered.search(text), f"{path}: {numbered.search(text).group(0)}"
-    # .pth weights: the conversion CLI's item, never the JAX package's tool
-    import importlib
-
+    monkeypatch.chdir(tmp_path)  # no ./config.yaml: built-in defaults
+    for cli, argv in (("extract_features", ["--data-parallel", "2"]),
+                      ("test_temporal", ["--model", "m.pth", "--dir", "d",
+                                         "--data-parallel", "2"])):
+        mod = importlib.import_module(f"cp360_tpu_torch.cli.{cli}")
+        with pytest.raises(NotImplementedError) as ei:
+            mod.main(argv + ["--device", "cpu"])
+        assert 'ROADMAP.md, "parallel"' in str(ei.value)
+        assert "cp360-convert" not in str(ei.value) and "JAX" not in str(ei.value)
+    # a .pth goes to the torch reader: a missing one is a missing file
     for cli, argv in (("extract_features", ["--weights", "w.pth"]),
                       ("test_temporal", ["--model", "m.pth", "--dir", "d"]),
                       ("serve", ["--weights", "w.pth"]),
                       ("stream_saliency", ["--video", "v.mp4", "--backbone", "b.pth",
                                            "--clstm", "c.npz", "--out", "o"])):
         mod = importlib.import_module(f"cp360_tpu_torch.cli.{cli}")
-        with pytest.raises(NotImplementedError,
-                           match='w.pth|m.pth|b.pth') as ei:
+        with pytest.raises(FileNotFoundError, match="w.pth|m.pth|b.pth"):
             mod.main(argv + ["--device", "cpu"])
-        assert 'ROADMAP.md, "weight conversion CLI"' in str(ei.value)
-        assert "cp360-convert" not in str(ei.value) and "JAX" not in str(ei.value)
 
 
 def test_kernel_sources_live_in_the_port():

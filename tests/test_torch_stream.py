@@ -1,11 +1,10 @@
 """PyTorch port, the streaming entry point (video -> saliency, no artifacts)
 against the JAX package and against the port's own offline path, on the CPU.
 
-A seeded 12-frame 256x128 mp4v video, ResNet-50 with a 16-class CAM on
+A seeded 12-frame 256x128 mp4v video, resnet18 with a 16-class CAM on
 64-pixel faces, ConvLSTM 16/16, seq_len 5, f32, as ``tests/test_stream.py``
-runs the JAX stream (which uses resnet18 there; the port runs resnet50
-only).  Tolerances: stage 1's f16 CAMs within one f16 ulp of the JAX
-package's; the stream against the JAX stream fed the same CAMs 1e-4
+runs the JAX stream.  Tolerances: stage 1's f16 CAMs within one f16 ulp of
+the JAX package's; the stream against the JAX resnet18 stream 1e-4
 (absolute and relative), as ``tests/test_stream.py`` holds the JAX stream
 against its offline path;
 against the port's offline extract -> ``infer_video`` path 1e-5 (the same
@@ -54,7 +53,7 @@ def _video(path, n=12, seed=3, size=(256, 128)):
 def inputs(tmp_path_factory):
     """The video, the weights (as trees and as .npz) and a config file."""
     root = tmp_path_factory.mktemp("stream")
-    backbone = jax_params.init_resnet_params(0, "resnet50", num_classes=16)
+    backbone = jax_params.init_resnet_params(0, "resnet18", num_classes=16)
     clstm = jax_params.init_clstm_params(1, 16, 16)
     jax_params.save_npz(str(root / "bb.npz"), backbone)
     jax_params.save_npz(str(root / "cl.npz"), clstm)
@@ -64,7 +63,8 @@ def inputs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def models(inputs):
-    return (jax_params.resnet_from_params(inputs["backbone"], compute_dtype=torch.float32),
+    return (jax_params.backbone_from_params(inputs["backbone"], "resnet18",
+                                            compute_dtype=torch.float32),
             jax_params.clstm_from_params(inputs["clstm"], torch.float32))
 
 
@@ -101,7 +101,7 @@ def test_stream_cams_equal_jax_to_one_f16_ulp(inputs, models):
             out[dtype] = extract.stage1_batch_faces(models[0], torch.from_numpy(faces),
                                                     out_dtype=dtype)[0].numpy()
     jtree = jax.tree_util.tree_map(jnp.asarray, inputs["backbone"])
-    want = np.asarray(jax_extract.stage1_batch_faces(jtree, jnp.asarray(faces),
+    want = np.asarray(jax_extract.stage1_batch_faces(jtree, jnp.asarray(faces), arch="resnet18",
                                                      compute_dtype=jnp.float32,
                                                      out_dtype=jnp.float32)[0])
     assert np.abs(out[torch.float32] - want).max() <= 1e-5 * np.abs(want).max()
@@ -111,26 +111,15 @@ def test_stream_cams_equal_jax_to_one_f16_ulp(inputs, models):
     assert np.all(np.abs(got16 - want16.astype(np.float32)) <= ulp)
 
 
-def test_stream_equals_the_jax_stream(inputs, models, streamed, monkeypatch):
-    """The JAX stream, its stage 1 fed the port's f16 CAMs (the previous
-    test holds those to one f16 ulp of the JAX package's; a one-ulp flip
-    of a CAM moves a map by up to 1.7e-4 here), against the port's stream:
-    the same ids, the carry, the padded tail and the window batches, within
-    1e-4."""
-    from cp360_tpu.pipelines import stream as jax_stream_mod
-    from cp360_tpu_torch.pipelines import extract
-
-    def port_stage1(params, faces, **kw):
-        assert kw["out_dtype"] == jnp.float16
-        with torch.no_grad():
-            scores = extract.stage1_batch_faces(models[0], torch.from_numpy(np.array(faces)),
-                                                out_dtype=torch.float16)[0]
-        return jnp.asarray(scores.numpy()), None
-
-    monkeypatch.setattr(jax_stream_mod, "stage1_batch_faces", port_stage1)
-    tree = jax.tree_util.tree_map(jnp.asarray, inputs["clstm"])
-    want = dict(jax_stream(None, tree, inputs["video"], JaxConfig(**CFG), arch="resnet50",
-                           stage1_batch=4))
+def test_stream_equals_the_jax_stream(inputs, streamed):
+    """The JAX package's resnet18 stream on the same video and weights
+    against the port's: the same ids, the carry, the padded tail and the
+    window batches, within 1e-4 (measured 1.5e-5: the previous test's f16
+    CAMs agree here to the last bit or one ulp, which moves a map far less
+    than 1e-4)."""
+    jtree = {k: jax.tree_util.tree_map(jnp.asarray, inputs[k]) for k in ("backbone", "clstm")}
+    want = dict(jax_stream(jtree["backbone"], jtree["clstm"], inputs["video"], JaxConfig(**CFG),
+                           arch="resnet18", stage1_batch=4))
     # 11 frames after the lag seed: batches of 4 + 4 + 3 (padded), windows 4..10
     assert sorted(streamed) == sorted(want) == list(range(4, 11))
     for k in want:
@@ -180,7 +169,7 @@ def _cli(inputs, out, *extra):
     root = inputs["root"]
     return stream_saliency.main([
         "--video", inputs["video"], "--backbone", str(root / "bb.npz"),
-        "--clstm", str(root / "cl.npz"), "--out", str(out), "--stage1-batch", "4",
+        "--clstm", str(root / "cl.npz"), "--out", str(out), "--stage1-batch", "4", "--arch", "resnet18",
         "--config", str(root / "config.yaml"), "--device", "cpu", *extra])
 
 
@@ -225,15 +214,27 @@ def test_cli_resume_continues_at_the_first_missing_map(inputs, tmp_path, capsys)
         np.testing.assert_array_equal(resumed[k], maps[k])
 
 
-def test_cli_needs_a_card_or_cpu(inputs, tmp_path):
+def test_cli_needs_a_card_or_cpu(inputs, streamed, tmp_path):
+    """Without a card the CLI exits unless --device cpu is given; on the CPU
+    it streams other backbone families too: resnet18 gives the library's
+    first map, vgg16 (16 classes, seeded) a finite one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     root = inputs["root"]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         stream_saliency.main(["--video", inputs["video"], "--backbone", str(root / "bb.npz"),
                               "--clstm", str(root / "cl.npz"), "--out", str(tmp_path / "o")])
-    for arch in ("resnet18", "vgg16"):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md, "resnet18/34/101/152"'):
-            stream_saliency.main(["--video", inputs["video"], "--backbone", str(root / "bb.npz"),
-                                  "--clstm", str(root / "cl.npz"), "--out", str(tmp_path / "o"),
-                                  "--arch", arch, "--device", "cpu"])
+    jax_params.save_npz(str(tmp_path / "vgg.npz"),
+                        jax_params.init_vgg16_params(2, num_classes=16))
+    for arch, backbone in (("resnet18", root / "bb.npz"), ("vgg16", tmp_path / "vgg.npz")):
+        out = tmp_path / arch
+        # 6 decoded frames: 5 CAM frames after the lag seed, one window of 5
+        assert stream_saliency.main(
+            ["--video", inputs["video"], "--backbone", str(backbone),
+             "--clstm", str(root / "cl.npz"), "--out", str(out), "--arch", arch,
+             "--max-frames", "6", "--stage1-batch", "4", "--config", str(root / "config.yaml"),
+             "--device", "cpu"]) == 1
+        got = _maps(out)
+        assert sorted(got) == [4] and got[4].shape == (4, 8) and np.isfinite(got[4]).all()
+        if arch == "resnet18":
+            np.testing.assert_allclose(got[4], streamed[4], atol=1e-5, rtol=1e-5)

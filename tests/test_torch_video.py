@@ -379,7 +379,7 @@ def test_extract_refusals(resnet_tree, tmp_path, kw, exc):
      ValueError),
     ("extract_features", ["--set", "transfer_codec=auto", "--device", "cpu"], ValueError),
     ("extract_features", ["--data-parallel", "2", "--device", "cpu"], NotImplementedError),
-    ("extract_features", ["--mode", "vgg16", "--device", "cpu"], NotImplementedError),
+    ("extract_features", ["--mode", "resnet200", "--device", "cpu"], ValueError),
     ("test_temporal", ["--model", "x.npz", "--dir", "d", "--data-parallel", "2",
                        "--device", "cpu"], NotImplementedError),
     ("test_temporal", ["--model", "x.npz", "--dir", "d", "--set",
@@ -390,9 +390,8 @@ def test_cli_refusals(tmp_path, monkeypatch, cli, argv, exc):
 
     monkeypatch.chdir(tmp_path)  # no ./config.yaml: built-in defaults
     mod = importlib.import_module(f"cp360_tpu_torch.cli.{cli}")
-    items = '"parallel"|"resnet18/34/101/152" and "vgg16-bn'
-    with pytest.raises(exc, match=f"ROADMAP.md, ({items})|flow backend|upload_format|"
-                                  "transfer_codec"):
+    with pytest.raises(exc, match='ROADMAP.md, "parallel"|flow backend|upload_format|'
+                                  "transfer_codec|unknown --mode 'resnet200'"):
         mod.main(argv)
 
 
