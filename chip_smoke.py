@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases options,stream
     python3 chip_smoke.py --phases backbones
+    python3 chip_smoke.py --phases parallel
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -182,6 +183,40 @@ Phases, in order; any failure exits non-zero before the result lines:
      clock, median of 3) and a profile of a 17-frame stream (two stage-1
      batches) with the device's idle share.
 
+9. parallel: scale-out at full width on the one card (ResNet-50, 1000
+   classes, 960x1920 frames, 224 faces, ConvLSTM 1000/1000, seq_len 5,
+   bf16, seeded weights).
+   - ``window_infer_pipelined`` over ``[cuda:0] * 5`` on 8 windows in 4
+     microbatches of 12 faces against ``window_infer``: bit-equal, or
+     within 0.02 of max|ref| (it prints which), 4x the serial K1 launches;
+     both timed.  A pipelined train step (seq_len 8 over ``[cuda:0] * 2``,
+     2 windows in 2 microbatches) against the serial step: loss within
+     1e-3, gradients within 0.02 of each tensor's max|g|.
+   - ``LocalReplicas([cuda:0, cuda:0])``: ``stage1_batch`` on 8 frames and
+     ``window_infer`` on 8 windows against one device (bit-equal or within
+     0.02, printed), one K2/K3 and 15 K1 launches per replica;
+     ``SaliencyModel`` with ``mesh_data`` 2 on that list answers 4
+     predicts and a 6-frame session as one card does (within 0.02).
+   - ``cli.launch --nprocs 2`` over ``cli.extract_features`` on
+     ``tests/golden/e2e_full``'s mp4s (one video a rank): the CAMs bit for
+     bit those of a one-process run; then over ``cli.test_temporal`` on
+     them: the merged aggregate against the one-process one (CC 1e-5, AUC
+     1e-3, AUC-Borji 0.05, as tests/test_distributed.py).  These issue no
+     collective on the card (the merge's barrier is a host all-reduce).
+   - With ``CP360_DIST_BACKEND=gloo`` (two ranks share the card; NCCL
+     refuses that), ``cli.train_temporal`` for 2 steps as dp 2x1 (npz) and
+     as tp 1x2 (``checkpoint_backend: orbax``, the DCP directory, then
+     resumed for an epoch): the same losses on both ranks.  One step on
+     each grid (``--worker grid-step``) against the one-device step on the
+     same params and batch: in f32 at the CPU test's tolerances (losses
+     rel 1e-5, the dp update lr * g within 1e-6 at lr 1e-3, tp gradients by
+     cosine > 0.999), in bf16 the losses and the dp gradients within 0.02
+     (tp's bf16 gradients printed).  K1 and dx ms at the tensor-parallel
+     2000-channel shard beside 4000.
+   - NCCL at world size 1 through the launcher (``--worker nccl``): the
+     grid, one all-reduce and one autograd all-gather on the card.
+   - ``cli.doctor --require-device`` exits 0; its JSON is printed.
+
 Every phase counts its paths one way, ``counted_run``: each kernel's count
 is set to 0 just before a run and read just after, and a phase reports the
 sum over its runs.  The last lines are ``{"kernels": [...]}``, the
@@ -198,6 +233,7 @@ import argparse
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2323,6 +2359,449 @@ def phase_backbones() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phase 9: scale-out ---------------------------------------------------------
+
+PIPE_STAGES = 5  # the published seq_len 5, one step a stage
+WINDOW_BF16_TOL = 0.02  # of max|ref|: the bf16 limit the earlier phases hold a CAM to
+GRID_COS_MIN = 0.999  # tp gradients by cosine (tests/test_parallel.py:79-93)
+
+
+def close_or_equal(a: torch.Tensor, ref: torch.Tensor, tol: float = WINDOW_BF16_TOL):
+    """(bit-equal, relative max error, passed): equal bits, or within
+    ``tol`` of max|ref|."""
+    a, ref = a.float(), ref.float()
+    err = float((a - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    equal = bool(torch.equal(a, ref))
+    return equal, err, equal or err <= tol
+
+
+def launch_start(nprocs: int, cmd, cwd: Path, **env):
+    """Start ``cli.launch --nprocs N -- cmd`` from ``cwd``; returns the
+    process and its start time (see :func:`launch_wait`)."""
+    p = subprocess.Popen([sys.executable, "-m", "cp360_tpu_torch.cli.launch", "--nprocs",
+                          str(nprocs), "--", *cmd], cwd=cwd,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT), **env),
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return p, time.monotonic()
+
+
+def stop(p: subprocess.Popen) -> None:
+    """End a child that is still running: SIGINT first (the launcher then
+    takes its workers down), SIGKILL after 45 s."""
+    if p.poll() is None:
+        p.send_signal(signal.SIGINT)
+        try:
+            p.wait(timeout=45)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def launch_wait(tag: str, started, timeout: float):
+    """Wait for a :func:`launch_start` job (killed at ``timeout``), write its
+    output to ``build/smoke_logs/parallel_<tag>.log``, return it with the wall
+    time; fails the smoke on a non-zero exit."""
+    p, t0 = started
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop(p)
+        fail(f"{tag}: the launched job ran over {timeout} s")
+    wall = time.monotonic() - t0
+    log_dir = ROOT / "build" / "smoke_logs"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    (log_dir / f"parallel_{tag}.log").write_text(out)
+    if p.returncode != 0:
+        print(out[-6000:])
+        fail(f"{tag}: the launched job exited {p.returncode}")
+    return out, wall
+
+
+def launch(tag: str, nprocs: int, cmd, cwd: Path, timeout: float, **env):
+    """``cli.launch --nprocs N -- cmd`` to its end (:func:`launch_wait`)."""
+    return launch_wait(tag, launch_start(nprocs, cmd, cwd, **env), timeout)
+
+
+def worker_grid_step() -> None:
+    """Under ``cli.launch --nprocs 2`` with ``CP360_DIST_BACKEND=gloo``: one
+    full-width train step on the 2x1 and the 1x2 grid (two ranks on the one
+    card), in f32 and in bf16, against the one-device step on the same
+    params and batch, which rank 0 computes after; prints ``GRID_LOSS``
+    lines and, on rank 0, ``GRID_STEP {json}``."""
+    from cp360_tpu_torch.compat.jax_params import init_clstm_params
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.parallel import mesh
+    from cp360_tpu_torch.train import loop
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.maybe_init_distributed("cuda")
+    device = mesh.rank_device("cuda")
+    params = init_clstm_params(SEED + 30, 1000, 1000)
+    rng = np.random.RandomState(SEED + 31)
+    seq = rng.gamma(0.5, 2.0, (2, 5, 6, 7, 7, 1000)).astype(np.float32)
+    flows = (rng.standard_normal((2, 5, 480, 960, 2)) * 2.0).astype(np.float32)
+    grids = {(nd, nm): mesh.ProcessGrid(nd, nm) for nd, nm in ((2, 1), (1, 2))}
+
+    def run(cfg, grid):
+        model = loop.trainable_clstm(cfg, params, device, grid)
+        step = loop.make_train_step(cfg, model, loop.make_optimizer(cfg, model), grid)
+        s, f = (seq, flows) if grid is None else mesh.shard_batch(grid, (seq, flows))
+        m = step(torch.from_numpy(s).to(device), torch.from_numpy(f).to(device))
+        grads = {}
+        for name, p in model.named_parameters():
+            g = p.grad
+            if grid is not None and grid.n_model > 1:
+                g = mesh.all_gather_cat(g, grid.model_group, dim=-1)
+            grads[name] = g.float().cpu()
+        del model, step
+        torch.cuda.empty_cache()
+        return float(m["loss"]), grads
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        res = {}
+        for (nd, nm), grid in grids.items():
+            cfg = Config(mesh_data=nd, mesh_model=nm, clstm_conv_impl="pallas",
+                         compute_dtype=dtype)
+            res[f"{nd}x{nm}"] = run(cfg, grid)
+            print(f"GRID_LOSS {dtype}/{nd}x{nm} rank {mesh.process_index()} "
+                  f"{res[f'{nd}x{nm}'][0]!r}", flush=True)
+        mesh.host_barrier()
+        if mesh.process_index() != 0:
+            continue
+        ref_loss, ref = run(Config(clstm_conv_impl="pallas", compute_dtype=dtype), None)
+        for key, (loss, grads) in res.items():
+            k = f"{dtype}/{key}"
+            out[f"{k}_loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+            out[f"{k}_grad_abs"] = max(float((grads[n] - ref[n]).abs().max()) for n in ref)
+            out[f"{k}_grad_rel"] = max(float((grads[n] - ref[n]).abs().max()
+                                             / ref[n].abs().max()) for n in ref)
+            out[f"{k}_grad_cos"] = min(float(torch.nn.functional.cosine_similarity(
+                grads[n].ravel(), ref[n].ravel(), dim=0)) for n in ref)
+        del res, ref
+    if mesh.process_index() == 0:
+        print("GRID_STEP " + json.dumps(out), flush=True)
+
+
+def worker_nccl() -> None:
+    """Under ``cli.launch --nprocs 1`` on the default backend (nccl for CUDA
+    tensors): the grid, one all-reduce and one autograd all-gather on the
+    card; prints ``NCCL_OK``."""
+    from cp360_tpu_torch.parallel import mesh
+
+    mesh.maybe_init_distributed("cuda")
+    grid = mesh.ProcessGrid(1, 1)
+    t = torch.arange(4.0, device="cuda")
+    mesh.all_reduce_(t, grid.data_group)
+    x = torch.arange(6.0, device="cuda").reshape(2, 3).requires_grad_()
+    y = mesh.gather_channels(x, grid.model_group)
+    (y * 2).sum().backward()
+    torch.cuda.synchronize()
+    ok = torch.equal(t.cpu(), torch.arange(4.0)) and torch.equal(y.detach(), x.detach()) \
+        and torch.equal(x.grad, torch.full_like(x, 2.0))
+    print(f"NCCL_OK backend={mesh._state['backend']} ok={ok} {grid!r}", flush=True)
+    if not ok:
+        sys.exit(1)
+
+
+def phase_parallel() -> dict:
+    """Scale-out at full width (ResNet-50, 1000 classes, 960x1920 frames,
+    224 faces, ConvLSTM 1000/1000, seq_len 5, bf16) on the one card."""
+    from cp360_tpu_torch.cli import extract_features
+    from cp360_tpu_torch.compat import jax_params
+    from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.ops import cube_conv
+    from cp360_tpu_torch.parallel.mesh import LocalReplicas
+    from cp360_tpu_torch.pipelines.extract import stage1_batch
+    from cp360_tpu_torch.pipelines.temporal import window_infer, window_infer_pipelined
+    from cp360_tpu_torch.serving.server import SaliencyModel
+    from cp360_tpu_torch.train import loop
+
+    t_phase = time.monotonic()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=build))
+    stats = {"card": gpu_line()}
+    counted: dict = {}
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 32)
+    side: list = []  # jobs started to run beside others, stopped on the way out
+    try:
+        # -- 1. the pipe over [cuda:0] * 5: 8 windows in 4 microbatches of 12 faces
+        clstm_params = jax_params.init_clstm_params(SEED + 1, 1000, 1000)
+        cell = jax_params.clstm_from_params(clstm_params, torch.bfloat16, True, "pallas", dev)
+        windows = torch.rand(8, 5, 6, 7, 7, 1000, generator=gen, device="cuda").half()
+        devices = [dev] * PIPE_STAGES
+        with torch.no_grad():
+            serial, got = counted_run(counted, lambda: window_infer(cell, windows))
+            piped, got_p = counted_run(counted, lambda: window_infer_pipelined(
+                cell, windows, devices, 4))
+            equal, err, ok = close_or_equal(piped, serial)
+            stats.update(pipe_bit_equal=equal, pipe_rel_err=err,
+                         pipe_ms=median_ms(lambda: window_infer_pipelined(cell, windows,
+                                                                          devices, 4)),
+                         serial_ms=median_ms(lambda: window_infer(cell, windows)))
+        print(f"parallel: window_infer_pipelined over [cuda:0]*{PIPE_STAGES}, n_micro 4: "
+              f"bit-equal {equal}, rel err {err}; K1 {got_p['cube_conv3x3']} launches "
+              f"(serial {got['cube_conv3x3']}); {stats['pipe_ms']:.2f} ms vs serial "
+              f"{stats['serial_ms']:.2f} ms", flush=True)
+        if not ok or got_p["cube_conv3x3"] != 4 * got["cube_conv3x3"]:
+            fail(f"pipelined window inference: rel err {err}, launches {got_p} vs {got}")
+
+        # a pipelined train step, seq_len 8 over [cuda:0] * 2, against the serial step
+        cfg = Config(seq_len=8, clstm_conv_impl="pallas", pipeline_microbatches=2)
+        seq = torch.rand(2, 8, 6, 7, 7, 1000, generator=gen, device="cuda")
+        flows = torch.randn(2, 8, 480, 960, 2, generator=gen, device="cuda") * 2.0
+        outs = {}
+        for name, c, pipe in (("serial", cfg, None),
+                              ("piped", cfg.replace(pipeline_stages=2), [dev, dev])):
+            model = loop.trainable_clstm(c, clstm_params, dev)
+            step = loop.make_train_step(c, model, loop.make_optimizer(c, model),
+                                        pipe_devices=pipe)
+            m, _ = counted_run(counted, lambda: step(seq, flows))
+            outs[name] = (float(m["loss"]), {n: p.grad.float().clone()
+                                             for n, p in model.named_parameters()})
+            del model, step
+        (l_s, g_s), (l_p, g_p) = outs["serial"], outs["piped"]
+        loss_rel = abs(l_p - l_s) / abs(l_s)
+        grad_rel = max(float((g_p[n] - g_s[n]).abs().max() / g_s[n].abs().max()) for n in g_s)
+        stats.update(pipe_train_loss_rel=loss_rel, pipe_train_grad_rel=grad_rel)
+        print(f"parallel: pipelined train step (seq_len 8, [cuda:0]*2, 2 microbatches) vs "
+              f"serial: loss rel {loss_rel}, gradient rel err {grad_rel} (limits 1e-3, "
+              f"{WINDOW_BF16_TOL})", flush=True)
+        if not (loss_rel <= 1e-3 and grad_rel <= WINDOW_BF16_TOL):
+            fail(f"pipelined train step: loss rel {loss_rel}, gradient rel {grad_rel}")
+        del outs, g_s, g_p, seq, flows
+        torch.cuda.empty_cache()
+
+        # -- 2. local replicas [cuda:0, cuda:0]
+        tree = jax_params.init_resnet_params(SEED, "resnet50", 1000)
+        backbone = jax_params.backbone_from_params(tree, "resnet50", True, torch.bfloat16, dev)
+        rng = np.random.RandomState(SEED + 33)
+        frames = torch.from_numpy(np.stack([natural_frame(960, 1920, rng)
+                                            for _ in range(8)])).cuda()
+        reps = LocalReplicas(backbone, [dev, dev])
+        creps = LocalReplicas(cell, [dev, dev])
+        with torch.no_grad():
+            (one_scores, _), _ = counted_run(counted, lambda: stage1_batch(backbone, frames))
+            (rep_scores, _), got = counted_run(counted, lambda: reps.run(
+                stage1_batch, split=(frames,)))
+            s_equal, s_err, s_ok = close_or_equal(rep_scores, one_scores)
+            rep_win, got_w = counted_run(counted, lambda: creps.run(window_infer,
+                                                                    split=(windows,)))
+            w_equal, w_err, w_ok = close_or_equal(rep_win, serial)
+        stats.update(replica_stage1_bit_equal=s_equal, replica_stage1_rel_err=s_err,
+                     replica_window_bit_equal=w_equal, replica_window_rel_err=w_err)
+        print(f"parallel: LocalReplicas([cuda:0, cuda:0]) stage1_batch on 8 frames: bit-equal "
+              f"{s_equal}, rel err {s_err} (K2 {got['equi_to_cube']}, K3 "
+              f"{got['cube_pool3x3s2']}); 8-window batch: bit-equal {w_equal}, rel err "
+              f"{w_err} (K1 {got_w['cube_conv3x3']})", flush=True)
+        if not (s_ok and w_ok and got["equi_to_cube"] == 2 and got_w["cube_conv3x3"] == 30):
+            fail(f"replicas: stage 1 {s_err}, windows {w_err}, launches {got}, {got_w}")
+        del reps, creps, rep_scores, one_scores, rep_win
+
+        # SaliencyModel with mesh_data 2 on [cuda:0, cuda:0] against one card
+        scfg = Config(cube_dim=224, equi_h=1920, equi_w=960, input_size=1000,
+                      hidden_size=1000, seq_len=5, compute_dtype="bfloat16",
+                      host_cube_remap=False, clstm_conv_impl="pallas", serve_max_batch=8,
+                      serve_batch_window_ms=5.0)
+        host_frames = [f.cpu().numpy() for f in frames[:6]]
+        answers = {}
+        for name, c, devs in (("one", scfg, None), ("two", scfg.replace(mesh_data=2),
+                                                    [dev, dev])):
+            model = SaliencyModel(tree, c, clstm_params=clstm_params, device="cuda",
+                                  devices=devs)
+
+            def serve(model=model):
+                with ThreadPoolExecutor(max_workers=4) as pool:
+                    preds = list(pool.map(model.predict, host_frames[:4]))
+                sid = model.temporal_start()
+                temporal = [model.temporal_push(sid, f)[1] for f in host_frames]
+                model.temporal_close(sid)
+                return preds, temporal
+
+            answers[name], _ = counted_run(counted, serve)
+            stats[f"serve_{name}_data_parallel"] = model.data_parallel
+            model.close()
+            del model
+        worst = 0.0
+        for a, b in zip(answers["two"][0] + answers["two"][1][4:],
+                        answers["one"][0] + answers["one"][1][4:]):
+            _, e, _ = close_or_equal(torch.from_numpy(a), torch.from_numpy(b))
+            worst = max(worst, e)
+        stats["serve_mesh_data_rel_err"] = worst
+        print(f"parallel: SaliencyModel mesh_data 2 on [cuda:0, cuda:0]: 4 predicts + a "
+              f"6-frame session, rel err vs one card {worst}", flush=True)
+        if worst > WINDOW_BF16_TOL or stats["serve_two_data_parallel"] != 2:
+            fail(f"data-parallel serving differs from one card: {worst}")
+        del backbone, cell, windows, serial, piped, frames
+        torch.cuda.empty_cache()
+
+        # K1 and dx on the tensor-parallel 2000-channel shard beside 4000
+        shard = {}
+        for cout in (4000, 2000):
+            x = torch.randn(8, 6, 7, 7, 4000, generator=gen, device="cuda").bfloat16()
+            w = (torch.randn(3, 3, 4000, cout, generator=gen, device="cuda") * 0.01).bfloat16()
+            b = torch.zeros(cout, device="cuda", dtype=torch.bfloat16)
+            dy = torch.randn(8, 6, 7, 7, cout, generator=gen, device="cuda").bfloat16()
+            shard[f"k1_ms_cout{cout}"] = cuda_ms(lambda: cube_conv.cube_conv3x3(x, w, b))
+            shard[f"dx_ms_cout{cout}"] = cuda_ms(lambda: cube_conv.cube_conv3x3_dx(dy, w))
+        stats["tp_shard_ms"] = shard
+        print(f"parallel: K1 / dx at [8,6,7,7,4000] -> 4000 vs the 2000-channel shard: "
+              f"{json.dumps(shard)}", flush=True)
+
+        # -- 5. and 6. start beside the launched jobs below (nothing timed runs
+        # from here on): NCCL at world size 1 through the launcher, and the doctor
+        nccl_job = launch_start(1, [sys.executable, str(ROOT / "chip_smoke.py"), "--worker",
+                                    "nccl"], ROOT)
+        side.append(nccl_job[0])
+        doctor = subprocess.Popen([sys.executable, "-m", "cp360_tpu_torch.cli.doctor",
+                                   "--require-device"], cwd=ROOT,
+                                  env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        side.append(doctor)
+
+        # -- 3. striped extraction and evaluation over two ranks (no collective
+        # on the card: the merge's barrier is a host all-reduce)
+        full = Golden("e2e_full", tmp / "full")
+        common = ["--device", "cuda", "--mode", "resnet50", "--weights",
+                  str(full.root / "resnet50.npz"), "--config", str(full.config), "-of"]
+        cwd = Path.cwd()
+        os.chdir(full.root)
+        try:
+            counted_run(counted, lambda: extract_features.main(["--out", "single"] + common))
+        finally:
+            os.chdir(cwd)
+        out, wall = launch("extract", 2, [sys.executable, "-m",
+                                          "cp360_tpu_torch.cli.extract_features",
+                               "--out", "striped"] + common, full.root, 600)
+        # every rank takes its stripe of test_25; the golden's two videos
+        # lie at positions 0 and 1 of it, so each rank extracts one
+        if [out.count(f"[p{r}] Now process") for r in (0, 1)] != [1, 1]:
+            fail(f"striped extraction did not give each rank one video:\n{out[-3000:]}")
+        n_files = 0
+        for vid in full.vids:
+            d1 = full.root / "output" / "single_resnet50" / vid / "cube_feat"
+            d2 = full.root / "output" / "striped_resnet50" / vid / "cube_feat"
+            names = sorted(os.listdir(d1))
+            if names != sorted(os.listdir(d2)):
+                fail(f"{vid}: striped extraction wrote other frames")
+            for f in names:
+                if not np.array_equal(np.load(d1 / f), np.load(d2 / f)):
+                    fail(f"{vid}/{f}: striped CAMs differ from the one-process CAMs")
+                n_files += 1
+        stats["striped_extract_s"] = wall
+        print(f"parallel: launch --nprocs 2 extract_features on the e2e_full mp4s in "
+              f"{wall:.1f} s: {n_files} CAM files bit-equal to the one-process run", flush=True)
+        single, _, _ = run_test_temporal(full.root, full.root / "clstm.npz",
+                                         full.root / "output" / "single_resnet50",
+                                         full.config, full.seed, totals=counted)
+        tdir = tmp / "temporal2"
+        tdir.mkdir()
+        out, wall = launch("test_temporal", 2, [sys.executable, "-m",
+                                                "cp360_tpu_torch.cli.test_temporal",
+                               "--device", "cuda", "--model", str(full.root / "clstm.npz"),
+                               "--dir", str(full.root / "output" / "striped_resnet50"),
+                               "--config", str(full.config)], tdir, 600)
+        merged = parse_result((tdir / "striped_resnet50_result.txt").read_text())
+        diffs = [abs(a - b) for a, b in zip(merged, single)]
+        stats.update(striped_eval_s=wall, striped_eval_diffs=diffs)
+        print(f"parallel: launch --nprocs 2 test_temporal: merged (CC, AUC, AUCB) {merged} vs "
+              f"one process {single} (limits 1e-5, 1e-3, 0.05) in {wall:.1f} s", flush=True)
+        if out.count("takes 1 video(s)") != 2 or out.count("==========") != 1 \
+                or not (diffs[0] < 1e-5 and diffs[1] < 1e-3 and diffs[2] < 0.05):
+            fail(f"striped evaluation: {merged} vs {single}")
+
+        # -- 4. two ranks training on the one card (gloo), at full width
+        n_windows = write_artifacts(tmp / "art", n_frames=7)
+        steps = n_windows // 2  # a step a batch of 2 windows
+        train_cmd = [sys.executable, "-m", "cp360_tpu_torch.cli.train_temporal", "--input",
+                     str(tmp / "art"), "--device", "cuda", "--set", "summary_freq=1",
+                     "--set", "batch_size=2", "--set", "save_freq=1000",
+                     "--set", "clstm_conv_impl=pallas"]
+        for name, extra in (("dp", ["--data-parallel", "2", "--set", "checkpoint_backend=npz"]),
+                            ("tp", ["--set", "mesh_model=2", "--set",
+                                    "checkpoint_backend=orbax"])):
+            ck = tmp / f"ck_{name}"
+            out, wall = launch(f"train_{name}", 2, train_cmd + extra + [
+                "--set", "epochs=1", "--set", f"checkpoint_path={ck}"], ROOT, 600,
+                CP360_DIST_BACKEND="gloo")
+            losses = {r: [ln.split("loss_avg=")[1].split()[0] for ln in out.splitlines()
+                          if ln.startswith(f"[p{r}]") and "loss_avg=" in ln] for r in (0, 1)}
+            stats[f"train_{name}_s"] = wall
+            stats[f"train_{name}_losses"] = losses[0]
+            print(f"parallel: launch --nprocs 2 train_temporal {name} (gloo, one card): "
+                  f"{n_windows} windows, losses rank 0 {losses[0]}, rank 1 {losses[1]} in "
+                  f"{wall:.1f} s", flush=True)
+            if losses[0] != losses[1] or len(losses[0]) != steps \
+                    or "backend gloo" not in out:
+                fail(f"two-rank training ({name}): losses {losses}")
+        ck = tmp / "ck_tp"
+        if not list(ck.glob("*/orbax/*/.metadata")):
+            fail("the tp run wrote no DCP checkpoint")
+        out, wall = launch("train_tp_resume", 2, train_cmd + [
+            "--set", "epochs=2", "--set", "mesh_model=2", "--set", "checkpoint_backend=orbax",
+            "--set", f"checkpoint_path={ck}", "--resume"], ROOT, 600,
+            CP360_DIST_BACKEND="gloo")
+        resumed = [ln for ln in out.splitlines() if ln.startswith("[p0]") and "loss_avg=" in ln]
+        print(f"parallel: tp resumed from its DCP checkpoint in {wall:.1f} s: "
+              f"{len(resumed)} more steps", flush=True)
+        if "resumed full train state" not in out or len(resumed) != steps:
+            fail(f"the tp run did not resume its DCP state:\n{out[-3000:]}")
+        out, wall = launch("grid_step", 2, [sys.executable, str(ROOT / "chip_smoke.py"),
+                                            "--worker", "grid-step"], ROOT, 600,
+                           CP360_DIST_BACKEND="gloo")
+        line = next(ln for ln in out.splitlines() if "GRID_STEP " in ln)
+        grid = json.loads(line.split("GRID_STEP ", 1)[1])
+        stats["grid_step"] = grid
+        rank_losses = {}
+        for ln in out.splitlines():
+            if "GRID_LOSS " in ln:
+                key, _, _, val = ln.split("GRID_LOSS ", 1)[1].split()
+                rank_losses.setdefault(key, set()).add(val)
+        print(f"parallel: one full-width step on the 2x1 and 1x2 grids vs one device "
+              f"({wall:.1f} s): {json.dumps(grid)}; losses per grid {rank_losses}", flush=True)
+        # f32 at the CPU test's tolerances (tests/test_torch_launch.py: losses rel
+        # 1e-5, the dp update lr * g within 1e-6 at lr 1e-3, tp by cosine); bf16
+        # losses within the smoke's bf16 limit (a slice's K1 may split its depth
+        # otherwise, so tp's bf16 rounding differs), its gradients printed
+        f32_ok = (grid["float32/2x1_loss_rel"] <= 1e-5 and grid["float32/1x2_loss_rel"] <= 1e-5
+                  and 1e-3 * grid["float32/2x1_grad_abs"] <= 1e-6
+                  and grid["float32/1x2_grad_cos"] > GRID_COS_MIN)
+        bf16_ok = max(grid["bfloat16/2x1_loss_rel"], grid["bfloat16/1x2_loss_rel"]) \
+            <= WINDOW_BF16_TOL and grid["bfloat16/2x1_grad_rel"] <= WINDOW_BF16_TOL
+        if any(len(v) != 1 for v in rank_losses.values()) or len(rank_losses) != 4 \
+                or not (f32_ok and bf16_ok):
+            fail(f"grid steps differ from the one-device step: {grid}, {rank_losses}")
+        # -- 5. NCCL at world size 1 through the launcher (started above)
+        out, _ = launch_wait("nccl", nccl_job, 300)
+        nccl = next((ln for ln in out.splitlines() if "NCCL_OK" in ln), "")
+        print(f"parallel: {nccl.strip()} (ran beside the jobs above)", flush=True)
+        if "ok=True" not in nccl or "nccl" not in nccl:
+            fail(f"NCCL at world size 1: {out[-2000:]}")
+
+        # -- 6. the doctor (started above)
+        try:
+            d_out, d_err = doctor.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            doctor.kill()
+            fail("doctor --require-device ran over 600 s")
+        summary = (d_out.strip().splitlines() or [""])[-1]
+        print(f"parallel: doctor --require-device (ran beside the jobs above) rc "
+              f"{doctor.returncode}: {summary}", flush=True)
+        if doctor.returncode != 0:
+            fail(f"doctor --require-device failed:\n{d_out[-3000:]}\n{d_err[-2000:]}")
+    finally:
+        for p in side:
+            stop(p)
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["phase_s"] = time.monotonic() - t_phase
+    print(f"parallel: {json.dumps(stats)}", flush=True)
+    return counted
+
+
 def profile_step(fn, top: int = 12, match: str = "") -> dict:
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
     with the device's busy share of the call's host-clock wall time; rows
@@ -2356,11 +2835,20 @@ def profile_step(fn, top: int = 12, match: str = "") -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
-                        default="build,kernels,slice,train,options,video,backbones,stream",
+                        default="build,kernels,slice,train,options,video,backbones,stream,"
+                                "parallel",
                         help="comma-separated subset of build,kernels,slice,train,options,"
-                             "video,backbones,stream")
+                             "video,backbones,stream,parallel")
+    parser.add_argument("--worker", choices=("grid-step", "nccl"), default=None,
+                        help="run one rank of the parallel phase's jobs (under cli.launch)")
     args = parser.parse_args(argv)
     phases = args.phases.split(",")
+    if args.worker:
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is false: this smoke runs on the card only")
+        sys.path.insert(0, str(ROOT))
+        {"grid-step": worker_grid_step, "nccl": worker_nccl}[args.worker]()
+        return
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke runs on the card only")
@@ -2382,7 +2870,8 @@ def main(argv=None) -> None:
     by_path = {}
     for name, run in (("slice", phase_slice), ("train", phase_train),
                       ("options", phase_options), ("video", phase_video),
-                      ("backbones", phase_backbones), ("stream", phase_stream)):
+                      ("backbones", phase_backbones), ("stream", phase_stream),
+                      ("parallel", phase_parallel)):
         if name in phases:
             t0 = time.monotonic()
             by_path[name] = run()

@@ -1,9 +1,9 @@
-"""Stage-1 CLI: extract CAM cubes (and overlay images) from Wild-360 videos,
-on one GPU.
+"""Stage-1 CLI: extract CAM cubes (and overlay images) from Wild-360 videos.
 
     python -m cp360_tpu_torch.cli.extract_features --config config.yaml \
         --out static -of [-oi] [-om] [--mode ARCH] [--weights W.npz|W.pth] \
-        [--max-frames N] [--device cuda|cpu] [--set FIELD=VALUE ...]
+        [--max-frames N] [--data-parallel N] [--device cuda|cpu] \
+        [--set FIELD=VALUE ...]
 
 The port of ``cp360_tpu/cli/extract_features.py`` (reference driver
 static_model/dataset_feat_extractor.py: flags -oi/-of/-om, --out, --mode;
@@ -20,7 +20,10 @@ the extraction's device); ``host_cube_remap: true`` with ``upload_format:
 yuv420`` uploads 4:2:0 planes.  ``--supervise`` runs the extraction as a
 child that is restarted when it stalls or crashes (a rerun resumes).
 Extraction runs on the card; without one it exits unless ``--device cpu``
-is given.  Not ported, and refused: ``--data-parallel``.
+is given.  ``--data-parallel N`` (``mesh_data``) splits every frame batch
+over N local devices in this process.  Under the launcher
+(``cli/launch.py``) the videos are striped over the ranks, each on its own
+card.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ def main(argv=None):
     from cp360_tpu_torch.compat.torch_weights import load_params
     from cp360_tpu_torch.config import add_config_overrides, config_from_args
     from cp360_tpu_torch.data.dataset import builtin_split
+    from cp360_tpu_torch.parallel import mesh as pmesh
     from cp360_tpu_torch.pipelines.extract import check_extract_config, extract_video
     from cp360_tpu_torch.serving.server import resolve_device
 
@@ -49,7 +53,8 @@ def main(argv=None):
     parser.add_argument("--weights", type=str, default=None, help=".npz or .pth backbone weights")
     parser.add_argument("--max-frames", type=int, default=None)
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--data-parallel", type=int, default=None, help="not ported")
+    parser.add_argument("--data-parallel", type=int, default=None,
+                        help="split frame batches over N local devices (sets mesh_data)")
     parser.add_argument("--supervise", nargs="?", type=float, const=420.0, default=None,
                         metavar="STALL_S",
                         help="run under a restart-on-stall supervisor (utils/supervise.py): "
@@ -62,9 +67,7 @@ def main(argv=None):
               "(config fields go through --set FIELD=VALUE)")
     cfg = config_from_args(args)
     if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not ported to cp360_tpu_torch yet (the port extracts on one "
-            'card); see ROADMAP.md, "parallel"')
+        cfg = cfg.replace(mesh_data=args.data_parallel)
     if args.mode not in jax_params.BACKBONES:
         raise ValueError(f"unknown --mode {args.mode!r} (one of {jax_params.BACKBONES})")
     check_extract_config(cfg, args.output_motion)
@@ -75,6 +78,15 @@ def main(argv=None):
         raise SystemExit(run_supervised("cp360_tpu_torch.cli.extract_features", argv,
                                         [out_path], args.supervise))
     device = resolve_device(args.device)  # before loading weights: fail fast
+    pmesh.maybe_init_distributed(device)
+    device = pmesh.rank_device(device)
+    multiproc = pmesh.process_count() > 1
+    # each rank computes on its own card: replicas only within one process
+    devices = (pmesh.local_devices(device, cfg.mesh_data)
+               if cfg.mesh_data > 1 and not multiproc else None)
+    if devices is not None:
+        pmesh.check_divisible(cfg.extract_batch, len(devices),
+                              f"batch_frames={cfg.extract_batch}", "so frames shard evenly")
 
     for k, v in sorted(dataclasses.asdict(cfg).items()):
         print(f"\t{k} : {v}")
@@ -83,6 +95,8 @@ def main(argv=None):
     model = jax_params.backbone_from_params(params, args.mode, cfg.cube_pad,
                                             compute_dtype, device)
     del params
+    if devices is not None:
+        model = pmesh.LocalReplicas(model, devices)
     out_path = os.path.join(cfg.output_path, f"{args.out}_{args.mode}")
     os.makedirs(out_path, exist_ok=True)
 
@@ -91,6 +105,12 @@ def main(argv=None):
         jobs += [("test", v) for v in builtin_split("test_25")]
     if cfg.train_mode:
         jobs += [("train", v) for v in builtin_split("train_60")]
+    if multiproc:
+        # stage 1 is embarrassingly parallel over videos: each rank takes a
+        # stripe and computes on its own card
+        jobs = pmesh.stripe_jobs(jobs)
+        print(f"multi-host extraction: process {pmesh.process_index()}/"
+              f"{pmesh.process_count()} takes {len(jobs)} video(s)")
     for split, vid in jobs:
         vid_file = os.path.join(cfg.data_vid_path, split, vid + ".mp4")
         if not os.path.exists(vid_file):

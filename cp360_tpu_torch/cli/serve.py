@@ -1,8 +1,8 @@
-"""Serving CLI: long-lived HTTP saliency inference on one GPU.
+"""Serving CLI: long-lived HTTP saliency inference.
 
     python -m cp360_tpu_torch.cli.serve --weights W.npz|W.pth [--mode ARCH] \
         [--clstm CLSTM.npz|CLSTM.pth] [--host 0.0.0.0] [--port 8360] \
-        [--config config.yaml] [--device cuda|cpu]
+        [--data-parallel N] [--config config.yaml] [--device cuda|cpu]
 
 ``--mode`` picks the backbone (resnet18/34/50/101/152, vgg16,
 mobilenet_v2).  Weights are the JAX package's ``.npz`` checkpoints or
@@ -11,7 +11,8 @@ backbone is randomly initialized from a seed (demo only).  POST an equirectangul
 heatmap image); GET /healthz for liveness.  With --clstm, streaming temporal
 sessions are served on /temporal/{session,frame,close} — see
 cp360_tpu_torch/serving/server.py.  The server runs on the card; without
-one it exits unless ``--device cpu`` is given.
+one it exits unless ``--device cpu`` is given.  ``--data-parallel N``
+(``mesh_data``) serves from replicas on the first N local cards.
 """
 
 from __future__ import annotations
@@ -33,12 +34,16 @@ def main(argv=None):
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8360)
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--data-parallel", type=int, default=None,
+                        help="serve from replicas on N local devices (sets mesh_data)")
     add_config_overrides(parser)
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         print(f"WARNING: ignoring unrecognized arguments: {' '.join(unknown)} "
               "(config fields go through --set FIELD=VALUE)")
     cfg = config_from_args(args)
+    if args.data_parallel:
+        cfg = cfg.replace(mesh_data=args.data_parallel)
     if args.mode not in jax_params.BACKBONES:
         raise ValueError(f"unknown --mode {args.mode!r} (one of {jax_params.BACKBONES})")
     device = resolve_device(args.device)  # before loading weights: fail fast
@@ -49,7 +54,8 @@ def main(argv=None):
                           device=device)
     httpd = serve(model, host=args.host, port=args.port)
     print(f"serving saliency on http://{args.host}:{args.port} (arch {args.mode}, "
-          f"{model.device}{', temporal' if clstm_params is not None else ''})")
+          f"{model.device} x{model.data_parallel}"
+          f"{', temporal' if clstm_params is not None else ''})")
 
     # SIGTERM drains like Ctrl-C: stop accepting, finish in-flight handlers,
     # fail queued batcher waiters

@@ -18,7 +18,8 @@ with ``--resume`` when it stalls or crashes.  ``--arch`` picks the
 backbone (resnet18/34/50/101/152, vgg16, mobilenet_v2).  Weights are the
 JAX package's ``.npz`` or torch ``.pth`` files (compat/torch_weights.py).
 The stream runs on the card; without one it exits unless ``--device cpu``
-is given.  Not ported, and refused: ``pipeline_stages`` above 1.
+is given.  ``--set pipeline_stages=P`` pipelines each window batch's
+recurrence over P devices (it must divide ``seq_len``).
 """
 
 from __future__ import annotations

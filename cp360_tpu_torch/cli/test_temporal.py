@@ -1,9 +1,9 @@
-"""Stage-2 CLI: temporal inference + evaluation against Wild-360 GT, on one
-GPU.
+"""Stage-2 CLI: temporal inference + evaluation against Wild-360 GT.
 
     python -m cp360_tpu_torch.cli.test_temporal --model CLSTM.npz|CLSTM.pth \
         --dir output/static_resnet50 [--overlay] [--batch-windows 64] [--resume] \
-        [--device cuda|cpu] [--config config.yaml] [--set FIELD=VALUE ...]
+        [--data-parallel N] [--device cuda|cpu] [--config config.yaml] \
+        [--set FIELD=VALUE ...]
 
 The port of ``cp360_tpu/cli/test_temporal.py`` (reference driver
 temporal_model/test_temporal.py: --model, --dir, --overlay).  For each
@@ -19,8 +19,15 @@ directory) with the frame-weighted aggregate.  ``--model`` is a ``.npz``
 and metrics completed, and their cached metrics still enter the
 aggregate; ``--supervise`` runs the job as a child that is restarted with
 ``--resume`` when it stalls or crashes.  Inference runs on the card;
-without one it exits unless ``--device cpu`` is given.  Not ported, and
-refused: ``--data-parallel``.
+without one it exits unless ``--device cpu`` is given.
+
+``--data-parallel N`` (``mesh_data``) splits every window batch over N
+local devices in this process.  Under the launcher (``cli/launch.py``) the
+videos are striped over the ranks, each writes its per-video metrics to a
+partial file, a barrier orders the files, and rank 0 merges them into the
+one-process aggregate; a failed stripe still writes its partial (flagged),
+so no rank hangs, and the job fails.  ``mesh_model`` is ignored here:
+tensor parallelism is a training option in the port.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ def main(argv=None):
     from cp360_tpu_torch.compat.torch_weights import load_clstm
     from cp360_tpu_torch.config import add_config_overrides, config_from_args
     from cp360_tpu_torch.data.dataset import builtin_split
+    from cp360_tpu_torch.parallel import mesh as pmesh
     from cp360_tpu_torch.pipelines.temporal import aggregate
     from cp360_tpu_torch.serving.server import resolve_device
 
@@ -51,7 +59,8 @@ def main(argv=None):
                              "(per-video _done.npz markers); their cached metrics still "
                              "enter the aggregate")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--data-parallel", type=int, default=None, help="not ported")
+    parser.add_argument("--data-parallel", type=int, default=None,
+                        help="split window batches over N local devices (sets mesh_data)")
     parser.add_argument("--supervise", nargs="?", type=float, const=420.0, default=None,
                         metavar="STALL_S",
                         help="run under a restart-on-stall supervisor (utils/supervise.py); "
@@ -64,9 +73,7 @@ def main(argv=None):
               "(config fields go through --set FIELD=VALUE)")
     cfg = config_from_args(args)
     if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not ported to cp360_tpu_torch yet (the port infers on one "
-            'card); see ROADMAP.md, "parallel"')
+        cfg = cfg.replace(mesh_data=args.data_parallel)
     if cfg.transfer_codec not in ("none", "int8"):
         raise ValueError(f"transfer_codec={cfg.transfer_codec!r} is not one of "
                          "'none', 'int8'")
@@ -77,6 +84,19 @@ def main(argv=None):
                                         [os.path.join(cfg.output_path, "temporal")],
                                         args.supervise, resume=True))
     device = resolve_device(args.device)  # before loading weights: fail fast
+    pmesh.maybe_init_distributed(device)
+    device = pmesh.rank_device(device)
+    multiproc = pmesh.process_count() > 1
+    if cfg.mesh_model > 1:
+        print("NOTE: multi-host striping uses per-host data parallelism; mesh_model is ignored"
+              if multiproc else
+              "NOTE: tensor parallelism is a training option here; mesh_model is ignored")
+    devices = (pmesh.local_devices(device, cfg.mesh_data)
+               if cfg.mesh_data > 1 and not multiproc else None)  # one card per rank
+    if devices is not None:
+        pmesh.check_divisible(args.batch_windows, len(devices),
+                              f"batch_windows={args.batch_windows}",
+                              "so window positions shard evenly")
 
     model_path = args.model
     if not os.path.exists(model_path):
@@ -84,13 +104,30 @@ def main(argv=None):
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     cell = clstm_from_params(load_clstm(model_path), compute_dtype, cfg.cube_pad,
                              cfg.clstm_conv_impl, device)
+    if devices is not None:
+        cell = pmesh.LocalReplicas(cell, devices)
 
     vids = [v for v in builtin_split("test_25")
             if os.path.isdir(os.path.join(args.dir, v, "cube_feat"))]
     outdir = os.path.join(cfg.output_path, "temporal")
     os.makedirs(outdir, exist_ok=True)
+    if multiproc:
+        vids = pmesh.stripe_jobs(vids)
+        print(f"multi-host inference: process {pmesh.process_index()}/"
+              f"{pmesh.process_count()} takes {len(vids)} video(s)")
     per_video, frame_counts = {}, {}
-    infer_all(args, cfg, cell, vids, outdir, per_video, frame_counts)
+    error = None
+    try:
+        infer_all(args, cfg, cell, vids, outdir, per_video, frame_counts)
+    except BaseException as e:  # noqa: BLE001 -- peers must not hang on the barrier
+        error = e
+    if multiproc:
+        merged = merge_partials(outdir, per_video, frame_counts, error)
+        if merged is None:
+            return None
+        per_video, frame_counts = merged
+    elif error is not None:
+        raise error
     if per_video:
         agg = aggregate(per_video, frame_counts)
         print("========== AUC: {AUC}\tCC: {CC}\tAUCB: {AUCB}\tSIM: {SIM}".format(**agg))
@@ -161,6 +198,44 @@ def infer_all(args, cfg, cell, vids, outdir, per_video, frame_counts) -> None:
                          **{k: np.asarray(res[k]) for k in ("AUC", "AUCB", "CC", "SIM")})
         else:
             atomic_savez(marker, has_gt=False, overlay=args.overlay)
+
+
+def merge_partials(outdir: str, per_video: dict, frame_counts: dict, error):
+    """Merge the ranks' per-video metrics through partial files on the
+    shared output directory.  Each rank writes its partial (a failed stripe
+    too, flagged, so every rank reaches the barrier and none hangs waiting
+    for a crashed peer; a hard kill is the launcher's to handle), a host
+    barrier orders the writes, then rank 0 reads them all.  Returns the
+    merged (per_video, frame_counts) on rank 0, None on the others; raises
+    the rank's own error, and on rank 0 when any stripe failed."""
+    import pickle
+
+    from cp360_tpu_torch.parallel import mesh as pmesh
+
+    rank = pmesh.process_index()
+    part = os.path.join(outdir, f"_partial_{rank:03}.pkl")
+    with open(part, "wb") as f:
+        pickle.dump((per_video, frame_counts, error is not None), f)
+    pmesh.host_barrier()
+    if rank != 0:
+        if error is not None:
+            raise error
+        return None
+    per_video, frame_counts = {}, {}
+    failed = [0] if error is not None else []
+    for p in range(pmesh.process_count()):
+        pp = os.path.join(outdir, f"_partial_{p:03}.pkl")
+        with open(pp, "rb") as f:
+            pv, fc, bad = pickle.load(f)
+        if bad and p not in failed:
+            failed.append(p)
+        per_video.update(pv)
+        frame_counts.update(fc)
+        os.remove(pp)
+    if failed:
+        raise RuntimeError(f"stripe(s) on process(es) {sorted(failed)} failed — "
+                           "aggregate would be incomplete") from error
+    return per_video, frame_counts
 
 
 def load_marker(marker: str):

@@ -1,10 +1,10 @@
-"""Stage-2 CLI: weakly-supervised ConvLSTM training over stage-1 artifacts,
-on one GPU.
+"""Stage-2 CLI: weakly-supervised ConvLSTM training over stage-1 artifacts.
 
     python -m cp360_tpu_torch.cli.train_temporal --input output/static_resnet50 \
         [--motion PATH] [--resume] [--metrics-jsonl FILE] [--profile-dir DIR] \
-        [--supervise [STALL_S]] [--device cuda|cpu] [--config config.yaml] \
-        [--sml W] [--tmpl W] [--mml W] [--lr LR] [--set FIELD=VALUE ...]
+        [--supervise [STALL_S]] [--data-parallel N] [--device cuda|cpu] \
+        [--config config.yaml] [--sml W] [--tmpl W] [--mml W] [--lr LR] \
+        [--set FIELD=VALUE ...]
 
 The port of ``cp360_tpu/cli/train_temporal.py`` (reference script
 temporal_model/train_temporal.py).  Windows come from the train_60 split
@@ -17,10 +17,20 @@ sets the reader threads, ``eval_every_epochs`` with ``eval_dir`` and
 ``label_path`` validates during training (``best.npz``, ``eval_patience``).
 ``--profile-dir`` writes a ``torch.profiler`` trace of the epochs;
 ``--supervise`` runs the job as a child that is restarted (with
-``--resume``) when it stalls or crashes.  Training runs on the card;
-without one it exits unless ``--device cpu`` is given.  Not ported yet,
-and refused: ``--data-parallel`` above 1 and the config options listed in
-``train/loop.py::check_config`` (ROADMAP.md, "parallel").
+``--resume``) when it stalls or crashes (not one worker of a multi-process
+job: supervise the whole launch).  Training runs on the card; without one
+it exits unless ``--device cpu`` is given.
+
+``pipeline_stages: P`` pipelines the rollout over P devices in this
+process.  ``mesh_data`` x ``mesh_model`` > 1 (``--data-parallel N`` sets
+``mesh_data``) trains on that many ranks, one per card, started by the
+launcher:
+
+    python -m cp360_tpu_torch.cli.launch --nprocs 2 -- \
+        python -m cp360_tpu_torch.cli.train_temporal --input ARTS --data-parallel 2
+
+Each rank then reads only its rows of every batch from disk ("per-host
+feeding").
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ def main(argv=None):
     from cp360_tpu_torch.config import add_config_overrides, config_from_args
     from cp360_tpu_torch.data.dataset import (
         PrefetchLoader, SegmentWindowDataset, WindowDataset, builtin_split)
+    from cp360_tpu_torch.parallel import mesh as pmesh
     from cp360_tpu_torch.serving.server import resolve_device
     from cp360_tpu_torch.train.checkpoint import make_checkpointer
     from cp360_tpu_torch.train.loop import (
@@ -46,7 +57,7 @@ def main(argv=None):
                         help="write structured train metrics to this JSONL file")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--data-parallel", type=int, default=None,
-                        help="not ported: the port trains on one card")
+                        help="train data-parallel over N ranks (sets mesh_data)")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace of the epochs here")
     parser.add_argument("--supervise", nargs="?", type=float, const=420.0, default=None,
@@ -73,6 +84,9 @@ def main(argv=None):
         raise SystemExit(run_supervised("cp360_tpu_torch.cli.train_temporal", argv, watch,
                                         args.supervise, resume=True, grace_s=60.0))
     device = resolve_device(args.device)  # before reading data: fail fast
+    pmesh.maybe_init_distributed(device)
+    device = pmesh.rank_device(device)
+    grid = pmesh.grid_from_config(cfg)  # one process with a mesh: raises, naming the launcher
 
     ds = WindowDataset(args.input, args.motion, builtin_split("train_60"), cfg.seq_len)
     if len(ds) == 0:
@@ -91,6 +105,11 @@ def main(argv=None):
               f"({ds.n_windows} windows reachable)")
     loader = PrefetchLoader(ds, batch_size=batch_size, shuffle=True,
                             num_threads=cfg.processes, transfer_codec=cfg.transfer_codec)
+    per_host = grid is not None and pmesh.process_count() > 1
+    if per_host:  # each rank reads only its own span of every global batch
+        loader.rows = pmesh.local_rows_slice(grid, batch_size)
+        print(f"per-host feeding: process {pmesh.process_index()} loads batch rows "
+              f"[{loader.rows.start}:{loader.rows.stop}) of {batch_size}")
 
     params = None
     resume_state = None
@@ -106,7 +125,8 @@ def main(argv=None):
         params = init_clstm_params(0, cfg.input_size, cfg.hidden_size)
 
     return train(cfg, loader, params=params, device=device,
-                 metrics_jsonl=args.metrics_jsonl, resume_state=resume_state)
+                 metrics_jsonl=args.metrics_jsonl, resume_state=resume_state,
+                 grid=grid, per_host_batches=per_host)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 The port's own copy of the JAX package's ``Config`` (same field names,
 types and defaults, so one ``config.yaml`` configures both packages).  The
 flat key set is the reference config.yaml:1-41 plus the extensions the JAX
-package added.  Fields that only the JAX package reads (mesh, link and
-some training and extraction settings) are kept so a shared file still
+package added.  Fields that only the JAX package reads (link and some
+training and extraction settings) are kept so a shared file still
 validates; the port's serving path reads ``cube_dim``, ``equi_h``/``equi_w``,
 ``input_size``/``hidden_size``, ``seq_len``, ``cube_pad``, ``compute_dtype``,
 ``host_cube_remap``, ``clstm_conv_impl``, ``upload_format``, ``mesh_data``
@@ -13,8 +13,9 @@ and the ``serve_*`` keys; its extraction also reads ``opt_flow``,
 training keys too: ``checkpoint_path``, ``epochs``, ``save_freq``,
 ``summary_freq``, ``lr`` and the ``lr_*`` schedule keys, ``grad_clip_norm``,
 ``batch_size``, ``flow_h``, the loss weights ``l_s``/``l_t``/
-``l_m``, ``mm_th``, ``train_remat`` and ``keep_checkpoints``; it refuses the
-options it does not run yet (``train/loop.py::check_config``).
+``l_m``, ``mm_th``, ``train_remat``, ``keep_checkpoints``,
+``checkpoint_backend``, ``mesh_data``/``mesh_model`` (a grid of ranks) and
+``pipeline_stages``/``pipeline_microbatches`` (``parallel/``).
 
 Note on ``equi_h``/``equi_w``: the reference passes (equi_h, equi_w) as a
 PIL (width, height) pair, so with the shipped values the actual frame is
@@ -80,8 +81,8 @@ class Config:
 
     # --- extensions of the JAX package (absent from the reference) -------
     compute_dtype: str = "bfloat16"  # conv compute precision on the device
-    mesh_data: int = 1  # data-parallel serving; the port serves on one card
-    mesh_model: int = 1
+    mesh_data: int = 1  # data-parallel width (replicas in one process, or ranks)
+    mesh_model: int = 1  # tensor-parallel ranks of the ConvLSTM's convs (training)
     profile_dir: Optional[str] = None
     host_cube_remap: bool = True  # sample cube faces on the host (cv2, u8);
     #   false = the all-device stage-1 step (equi->cube kernel on the card)

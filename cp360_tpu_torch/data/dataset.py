@@ -12,8 +12,8 @@ Files are read with numpy on ``num_threads`` threads (the JAX package's
 native batch loader is not ported).  :class:`SegmentWindowDataset` groups
 consecutive windows into one frame run (config ``segment_windows``), and
 the loader's ``transfer_codec: int8`` ships the CAM windows as int8 plus
-f32 scales and the flows as f16.  The JAX loader's multi-host ``rows``
-waits for ROADMAP.md, "parallel".
+f32 scales and the flows as f16.  ``rows`` reads only one rank's span of
+every global batch (``parallel/mesh.py::local_rows_slice``).
 """
 
 from __future__ import annotations
@@ -161,10 +161,16 @@ class PrefetchLoader:
     20 px peak gives 0.157 px), which would zero the static mask; f16
     keeps the error near 0.01 px and still halves the flows' bytes.  The
     codec runs on the worker thread, beside the device's work.
+
+    ``rows`` (a slice of the global batch) reads only those rows of every
+    batch: every rank keeps the same seeded order, so the ranks' rows make
+    up exactly the global batch, and the int8 scales are per sample, so a
+    rank's rows quantize as they would in the whole batch.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 num_threads: int = 4, prefetch: int = 2, transfer_codec: str = "none"):
+                 num_threads: int = 4, prefetch: int = 2, transfer_codec: str = "none",
+                 rows: Optional[slice] = None):
         if transfer_codec not in ("none", "int8"):
             raise ValueError(f"transfer_codec={transfer_codec!r} is not one of 'none', 'int8'")
         self.ds = dataset
@@ -174,6 +180,7 @@ class PrefetchLoader:
         self.num_threads = max(1, num_threads)
         self.prefetch = prefetch
         self.transfer_codec = transfer_codec
+        self.rows = rows
 
     def __len__(self) -> int:
         return len(self.ds) // self.batch_size  # a short last batch is dropped
@@ -201,6 +208,8 @@ class PrefetchLoader:
             raise ValueError(f"skip_batches={skip_batches} not in [0, {nb}]")
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(skip_batches, nb)]
+        if self.rows is not None:
+            batches = [b[self.rows] for b in batches]
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

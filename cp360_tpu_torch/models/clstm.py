@@ -14,6 +14,12 @@ name the same function: a cube-padded conv on a CUDA tensor always launches
 the fused kernel (ops/cube_conv.py), and its backward the dx kernel; the
 plain versions run for CPU tensors only.  ``use_cube_pad=False`` runs the
 plain zero-pad conv, as ``cp360_tpu/models/clstm.py:60,72`` does.
+
+Under tensor parallelism (:meth:`ConvLSTM.shard_over`) each rank holds a
+contiguous slice of every conv's output channels, runs its convs (K1
+forward, dx backward) on that slice and gathers the activations along
+channels before the next conv and the gate split
+(``parallel/mesh.py``, the layout of ``clstm_param_sharding``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from cp360_tpu_torch.models import layers
 from cp360_tpu_torch.ops import cube_conv
 from cp360_tpu_torch.ops.cube_pad import zero_pad
+from cp360_tpu_torch.parallel import mesh as pmesh
 
 CONV_IMPLS = ("xla", "pallas")
 CONV_NAMES = ("conv1", "conv2", "gates")
@@ -51,6 +58,8 @@ class ConvLSTM(nn.Module):
             raise ValueError(f"clstm_conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
         self.compute_dtype = compute_dtype
         self.use_cube_pad = use_cube_pad
+        self.model_group = None  # tensor parallelism: see shard_over
+        self.n_model = 1
         for name in CONV_NAMES:
             for key in ("w", "b"):
                 if trainable:
@@ -62,7 +71,15 @@ class ConvLSTM(nn.Module):
 
     @property
     def hidden_size(self) -> int:
-        return self.gates_w.shape[3] // 4
+        return self.gates_w.shape[3] * self.n_model // 4
+
+    def shard_over(self, group, n_model: int) -> "ConvLSTM":
+        """Mark the held weights as this rank's output-channel shard of a
+        model group of ``n_model`` ranks (``parallel/mesh.py::
+        shard_clstm_params`` made them): each conv's output is gathered
+        along channels, and its input gradient summed over the group."""
+        self.model_group, self.n_model = group, n_model
+        return self
 
     def weights(self) -> Dict[str, Tuple[torch.Tensor, ...]]:
         """name -> (w, b, wc, bc): the held weights and their compute-dtype
@@ -78,15 +95,21 @@ class ConvLSTM(nn.Module):
         """One cube-padded 3x3 conv on face-flattened [B*6, h, w, C] input,
         with ``weights`` from :meth:`weights`."""
         w, b, wc, bc = weights[name]
+        if self.model_group is not None:
+            x = pmesh.reduce_grad(x, self.model_group)
         if self.use_cube_pad:  # the kernel's wrapper rejects non-square faces
             x6 = x.reshape(-1, 6, *x.shape[1:]).to(self.compute_dtype).contiguous()
             out = cube_conv.cube_conv3x3_train(x6, w, b, wc, bc)
-            return out.reshape(-1, *out.shape[2:])
-        x6 = zero_pad(x.reshape(-1, 6, *x.shape[1:]), 1)
-        # the bias stays in its held dtype and adds after the conv, as
-        # cp360_tpu/models/layers.py::conv2d adds it
-        return layers.conv2d(x6.reshape(-1, *x6.shape[2:]), wc, b,
-                             compute_dtype=self.compute_dtype)
+            out = out.reshape(-1, *out.shape[2:])
+        else:
+            x6 = zero_pad(x.reshape(-1, 6, *x.shape[1:]), 1)
+            # the bias stays in its held dtype and adds after the conv, as
+            # cp360_tpu/models/layers.py::conv2d adds it
+            out = layers.conv2d(x6.reshape(-1, *x6.shape[2:]), wc, b,
+                                compute_dtype=self.compute_dtype)
+        if self.model_group is not None:
+            out = pmesh.gather_channels(out, self.model_group)
+        return out
 
 
 def clstm_step(cell: ConvLSTM, x: torch.Tensor,

@@ -6,11 +6,18 @@ seconds), for ``sm_90a`` (Hopper).  Libraries go to ``build/cp360_tpu_torch/``
 at the root of the checkout, named by a hash of the source and the flags,
 and are built at first use: a fresh checkout builds everything on its first
 call.  A failed build raises; nothing falls back to the plain versions.
+
+Builds are safe across processes (several ranks of one job load the
+kernels at once): each target has a file lock beside it, taken before
+nvcc runs and held until the library is in place, nvcc writes to a
+temporary name that is renamed into place, and a process that finds the
+library built once it holds the lock does not build it again.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -56,26 +63,43 @@ def build(names=SOURCES) -> dict:
             return {}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
-        procs = {}
-        for name in todo:
-            so = library_path(name)
-            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-            procs[name] = (subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp, so)
-        logs, failed = {}, []
-        for name, (proc, tmp, so) in procs.items():
-            out, _ = proc.communicate()
-            logs[name] = out
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed for {name}.cu "
-                              f"(exit {proc.returncode}):\n{out}")
-                continue
-            os.replace(tmp, so)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        return logs
+        locks = []
+        try:
+            for name in sorted(todo):  # one order in every process: no deadlock
+                lock = open(library_path(name).with_suffix(".lock"), "w")
+                locks.append(lock)
+                fcntl.flock(lock, fcntl.LOCK_EX)
+            # another process may have built some while this one waited
+            return _compile([n for n in todo if not library_path(n).exists()], nvcc)
+        finally:
+            for lock in locks:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+                lock.close()
+
+
+def _compile(todo, nvcc: str) -> dict:
+    """One nvcc per source, all started together, each into a temporary
+    file renamed into place; raises if any failed."""
+    procs = {}
+    for name in todo:
+        so = library_path(name)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, so)
+    logs, failed = {}, []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

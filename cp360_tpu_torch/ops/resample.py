@@ -303,3 +303,30 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     out = torch.einsum("Oh,nhwc->nOwc", ry, x.float())
     out = torch.einsum("Pw,nhwc->nhPc", rx, out)
     return out.to(x.dtype)
+
+
+def remap_bilinear_numpy(img: np.ndarray, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
+    """Host (numpy) bilinear remap, the port's copy of
+    ``cp360_tpu/ops/resample.py::remap_bilinear_numpy``.
+
+    img: [H, W] or [H, W, C]; xs, ys: float maps of the output grid.
+    Border: clamped (the geometry maps clamp their coordinates to the
+    interior already, as ``cv2.remap`` effectively does for them).
+    """
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w, _ = img.shape
+    x0 = np.floor(xs).astype(np.int64)
+    y0 = np.floor(ys).astype(np.int64)
+    fx = (xs - x0)[..., None]
+    fy = (ys - y0)[..., None]
+    x1 = np.clip(x0 + 1, 0, w - 1)
+    y1 = np.clip(y0 + 1, 0, h - 1)
+    x0 = np.clip(x0, 0, w - 1)
+    y0 = np.clip(y0, 0, h - 1)
+    out = (img[y0, x0] * (1 - fx) * (1 - fy)
+           + img[y0, x1] * fx * (1 - fy)
+           + img[y1, x0] * (1 - fx) * fy
+           + img[y1, x1] * fx * fy)
+    return out[..., 0] if squeeze else out

@@ -40,7 +40,7 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
-from typing import Iterable, Iterator, Optional
+from typing import Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -52,6 +52,7 @@ from cp360_tpu_torch.models.cam import Backbone, cam_forward
 from cp360_tpu_torch.ops import equi_gather
 from cp360_tpu_torch.ops.quantize import dequantize_cam_np, quantize_cam
 from cp360_tpu_torch.ops.resample import cube_to_equi
+from cp360_tpu_torch.parallel.mesh import LocalReplicas, check_divisible
 from cp360_tpu_torch.utils.atomic import atomic_save
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -297,7 +298,8 @@ def _to_device(arrays, device: torch.device, pin: bool):
     return host.to(device, non_blocking=True), host
 
 
-def extract_frames(model: Backbone, cfg: Config, frames: Iterable[np.ndarray], out_dir: str,
+def extract_frames(model: Union[Backbone, LocalReplicas], cfg: Config,
+                   frames: Iterable[np.ndarray], out_dir: str,
                    output_img: bool = True, output_feature: bool = True,
                    output_motion: bool = False, max_frames: Optional[int] = None,
                    name: str = "frames") -> int:
@@ -321,10 +323,20 @@ def extract_frames(model: Backbone, cfg: Config, frames: Iterable[np.ndarray], o
     while the device computes.  Extraction resumes: frames whose requested
     artifacts exist are skipped, and every file is written atomically, so
     an existing one is complete.
+
+    ``model`` may be a :class:`~cp360_tpu_torch.parallel.mesh.LocalReplicas`
+    of the backbone: each batch then splits into equal row blocks, one per
+    replica's device (frames are independent; the reference's loop is
+    serial only by construction, dataset_feat_extractor.py:119-123), and
+    the results come back on its first device.
     """
     check_extract_config(cfg, output_motion)
     batch_frames = cfg.extract_batch
-    device = _model_device(model)
+    replicas = model if isinstance(model, LocalReplicas) else None
+    if replicas is not None:
+        check_divisible(batch_frames, len(replicas), f"batch_frames={batch_frames}",
+                        "so frames shard evenly")
+    device = replicas.device if replicas is not None else _model_device(model)
     pin = device.type == "cuda"
     feat_dir = os.path.join(out_dir, "cube_feat")
     motion_dir = os.path.join(out_dir, "motion")
@@ -343,6 +355,13 @@ def extract_frames(model: Backbone, cfg: Config, frames: Iterable[np.ndarray], o
                                                     device) if device_flow else None)
     written = 0
 
+    def stage1(m, *xs):
+        if yuv:
+            return stage1_batch_faces_yuv(m, *xs, out_dtype=out_dtype, codec=codec)
+        if cfg.host_cube_remap:
+            return stage1_batch_faces(m, xs[0], out_dtype=out_dtype, codec=codec)
+        return stage1_batch(m, xs[0], cfg.cube_dim, out_dtype=out_dtype)
+
     def compute(batch, remap_futs):
         """Stack, pad and launch one batch; returns its pending record."""
         if cfg.host_cube_remap:
@@ -352,12 +371,10 @@ def extract_frames(model: Backbone, cfg: Config, frames: Iterable[np.ndarray], o
         items += [items[-1]] * (batch_frames - len(items))
         parts = list(zip(*items)) if yuv else [items]  # yuv: (Y, UV) per frame
         xs, hosts = zip(*(_to_device(part, device, pin) for part in parts))
-        if yuv:
-            out = stage1_batch_faces_yuv(model, *xs, out_dtype=out_dtype, codec=codec)
-        elif cfg.host_cube_remap:
-            out = stage1_batch_faces(model, xs[0], out_dtype=out_dtype, codec=codec)
+        if replicas is not None:
+            out = replicas.run(stage1, split=xs)
         else:
-            out = stage1_batch(model, xs[0], cfg.cube_dim, out_dtype=out_dtype)
+            out = stage1(model, *xs)
         # the artifact layout [N, 6, K, h, w], made contiguous on the device:
         # np.save of a transposed view writes element by element
         out = (*(t.permute(0, 1, 4, 2, 3).contiguous() for t in out[:-1]), out[-1])
@@ -454,7 +471,8 @@ def _video_frames(cap, total: int) -> Iterator[np.ndarray]:
         yield frame
 
 
-def extract_video(model: Backbone, cfg: Config, vid_path: str, out_dir: str,
+def extract_video(model: Union[Backbone, LocalReplicas], cfg: Config, vid_path: str,
+                  out_dir: str,
                   output_img: bool = True, output_feature: bool = True,
                   output_motion: bool = False, max_frames: Optional[int] = None) -> int:
     """:func:`extract_frames` over the frames ``cv2.VideoCapture`` decodes

@@ -15,11 +15,18 @@ numbering.  One deliberate difference from the offline loop: its bound
 skips the final complete window (``idx >= len(seq) - num_subseq``,
 test_temporal.py:61-62); the stream emits it, so the offline maps are a
 strict prefix of the stream's.
+
+With ``pipeline_stages`` P > 1 each batch's windows go through the
+pipelined window inference (``pipelines/temporal.py::
+window_infer_from_frames_pipelined``): the seq_len time steps run as P
+stages over P devices of the model's kind, the windows as
+gcd(windows, ``pipeline_microbatches``) microbatches.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+import math
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -31,7 +38,9 @@ from cp360_tpu_torch.models.clstm import ConvLSTM
 from cp360_tpu_torch.pipelines.extract import (
     _model_device, _resize_frame, _to_device, host_faces_for_upload, stage1_batch_faces,
     stage1_batch_faces_yuv)
-from cp360_tpu_torch.pipelines.temporal import window_infer_from_frames
+from cp360_tpu_torch.parallel.pipeline import make_pipe_devices
+from cp360_tpu_torch.pipelines.temporal import (
+    window_infer_from_frames, window_infer_from_frames_pipelined)
 
 REMAP_WORKERS = 4  # host threads cube-sampling decoded frames (cv2 drops the GIL)
 
@@ -58,9 +67,12 @@ def stream_video_saliency(model: Backbone, cell: ConvLSTM, vid_path: str, cfg: C
     """
     import cv2
 
+    pipe_devices = None
     if cfg.pipeline_stages > 1:
-        raise NotImplementedError("pipeline_stages > 1 (pipeline parallelism) is not ported to "
-                                  'cp360_tpu_torch yet; see ROADMAP.md, "parallel"')
+        if cfg.seq_len % cfg.pipeline_stages:
+            raise ValueError(f"pipeline_stages={cfg.pipeline_stages} must divide "
+                             f"seq_len={cfg.seq_len} (each stage runs seq_len/stages steps)")
+        pipe_devices = make_pipe_devices(cfg.pipeline_stages, _model_device(model))
     if cfg.upload_format not in ("rgb8", "yuv420"):
         raise ValueError(f"upload_format={cfg.upload_format!r} is not one of 'rgb8', 'yuv420'")
     cap = cv2.VideoCapture(vid_path)
@@ -70,11 +82,12 @@ def stream_video_saliency(model: Backbone, cell: ConvLSTM, vid_path: str, cfg: C
     total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
     if max_frames is not None:
         total = min(total, max_frames)
-    return _stream_frames(model, cell, cfg, stage1_batch, cap, total, start_output)
+    return _stream_frames(model, cell, cfg, stage1_batch, cap, total, start_output,
+                          pipe_devices)
 
 
 def _stream_frames(model: Backbone, cell: ConvLSTM, cfg: Config, stage1_batch: int, cap,
-                   total: int, start_output: int):
+                   total: int, start_output: int, pipe_devices=None):
     seq_len = cfg.seq_len
     keep = seq_len - 1
     yuv = cfg.upload_format == "yuv420"
@@ -108,7 +121,13 @@ def _stream_frames(model: Backbone, cell: ConvLSTM, cfg: Config, stage1_batch: i
                 # every position, pad windows included: one window-batch
                 # shape after the first batch
                 positions = torch.arange(frames.shape[0] - seq_len + 1, device=device)
-                preds = window_infer_from_frames(cell, frames, positions, seq_len).cpu().numpy()
+                if pipe_devices is not None:
+                    n_micro = max(1, math.gcd(len(positions), cfg.pipeline_microbatches))
+                    preds = window_infer_from_frames_pipelined(
+                        cell, frames, positions, pipe_devices, n_micro, seq_len)
+                else:
+                    preds = window_infer_from_frames(cell, frames, positions, seq_len)
+                preds = preds.cpu().numpy()
                 # the offline numbering ({position + seq_len - 1:05},
                 # test_temporal.py:86-88): artifact counters start at 2
                 out = [(all_cnts[k + seq_len - 1] - 2, preds[k]) for k in range(real_windows)]

@@ -1,7 +1,6 @@
 """Stage-2 temporal inference + evaluation over stage-1 artifacts.
 
-The port of ``cp360_tpu/pipelines/temporal.py`` on one card, without its
-mesh and pipelined forms.  Protocol parity with the reference
+The port of ``cp360_tpu/pipelines/temporal.py``.  Protocol parity with the reference
 (temporal_model/test_temporal.py:19-115): sliding windows of ``seq_len``
 CAM cubes at stride 1; each window is jointly min/max normalized; hidden
 and cell state are seeded with the window's first normalized frame; the
@@ -11,6 +10,11 @@ max of the equi-projected final hidden state, saved as
 AUC-Borji, CC and SIM.  Independent windows ride the batch axis of one
 rollout, and each artifact frame crosses to the device once per batch of
 windows (:func:`window_infer_from_frames` gathers the windows there).
+
+Scale-out: :func:`infer_video` splits each batch of windows over a
+``parallel/mesh.py::LocalReplicas`` (one ConvLSTM copy per local device),
+and :func:`window_infer_pipelined` runs the recurrence's time steps as
+pipeline stages over a device list (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import os
 import re
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -28,6 +32,8 @@ from cp360_tpu_torch.metrics import saliency as M
 from cp360_tpu_torch.models.clstm import ConvLSTM, clstm_rollout
 from cp360_tpu_torch.ops.quantize import dequantize_cam, quantize_cam_np
 from cp360_tpu_torch.ops.resample import cube_to_equi
+from cp360_tpu_torch.parallel.mesh import LocalReplicas, check_divisible
+from cp360_tpu_torch.parallel.pipeline import pipelined_rollout
 
 PREFETCH_DEPTH = 3  # batches of artifacts read ahead of the device
 
@@ -101,6 +107,29 @@ def window_infer_from_frames_q(cell: ConvLSTM, q: torch.Tensor, scales: torch.Te
     return window_infer(cell, dequantize_cam(q[idx], scales[idx]))
 
 
+def window_infer_pipelined(cell: ConvLSTM, windows: torch.Tensor, devices: Sequence,
+                           n_micro: int) -> torch.Tensor:
+    """:func:`window_infer` with the recurrence pipelined over ``devices``:
+    stage p runs time steps [p*T/P, (p+1)*T/P) and the windows flow
+    through the stages as ``n_micro`` microbatches (microbatch m is in
+    stage p while m+1 is in stage p-1).  Equal to :func:`window_infer`
+    (the same ops in the same order on each microbatch); needs
+    T % len(devices) == 0 and n_micro | B.  Returns [B, 2h, 4w] on
+    ``windows``' device."""
+    x, b = _normalize_windows(windows)
+    _, h_final, _ = pipelined_rollout(cell, x, x[0], x[0], devices, n_micro)
+    return _project_hidden(h_final, b)
+
+
+def window_infer_from_frames_pipelined(cell: ConvLSTM, frames: torch.Tensor,
+                                       positions: torch.Tensor, devices: Sequence,
+                                       n_micro: int, seq_len: int = 5) -> torch.Tensor:
+    """Pipelined form of :func:`window_infer_from_frames` (the same window
+    gather on the device, the recurrence pipelined over ``devices``)."""
+    return window_infer_pipelined(cell, frames[_window_index(positions, seq_len)],
+                                  devices, n_micro)
+
+
 def video_windows(feat_dir: str) -> List[int]:
     """Sorted artifact frame indices of a video's cube_feat directory.
 
@@ -117,9 +146,12 @@ def _cell_device(cell: ConvLSTM) -> torch.device:
     return next(iter([*cell.buffers(), *cell.parameters()])).device
 
 
-def infer_video(cell: ConvLSTM, feat_dir: str, seq_len: int, batch_windows: int = 64,
-                transfer_codec: str = "none") -> Dict[int, np.ndarray]:
-    """All window predictions for one video, on the cell's device.
+def infer_video(cell: Union[ConvLSTM, LocalReplicas], feat_dir: str, seq_len: int,
+                batch_windows: int = 64, transfer_codec: str = "none") -> Dict[int, np.ndarray]:
+    """All window predictions for one video, on the cell's device, or split
+    over the devices of a :class:`LocalReplicas` of the cell (each replica
+    runs 1/N of every batch's windows; the frames go whole to each device,
+    since overlapping windows share them).
 
     Returns {window position idx: prediction [2h, 4w] f32}; idx follows the
     reference's enumeration over the sorted frame list, and the saved/eval
@@ -132,11 +164,18 @@ def infer_video(cell: ConvLSTM, feat_dir: str, seq_len: int, batch_windows: int 
     card.  ``transfer_codec="int8"`` quantizes the frames on the IO thread
     (per face x channel, ops/quantize.py, f16 scales) so half the bytes
     cross and the device dequantizes.  The tail batch runs only its valid
-    windows.
+    windows (with replicas, padded with its last window to a multiple of
+    their count).
     """
     if transfer_codec not in ("none", "int8"):
         raise ValueError(f"transfer_codec={transfer_codec!r} is not one of 'none', 'int8'")
-    device = _cell_device(cell)
+    replicas = cell if isinstance(cell, LocalReplicas) else None
+    if replicas is not None:
+        check_divisible(batch_windows, len(replicas), f"batch_windows={batch_windows}",
+                        "so window positions shard evenly")
+        device = replicas.device
+    else:
+        device = _cell_device(cell)
     pin = device.type == "cuda"
     frame_ids = video_windows(feat_dir)
     n = len(frame_ids)
@@ -176,11 +215,15 @@ def infer_video(cell: ConvLSTM, feat_dir: str, seq_len: int, batch_windows: int 
                 prep_q.append(io_pool.submit(prepare, starts[next_s]))
                 next_s += 1
             dev = [t.to(device, non_blocking=True) for t in host]
-            positions = torch.arange(valid, device=device)
-            if transfer_codec == "int8":
-                preds = window_infer_from_frames_q(cell, dev[0], dev[1], positions, seq_len)
+            infer = (window_infer_from_frames_q if transfer_codec == "int8"
+                     else window_infer_from_frames)
+            if replicas is not None:
+                n_pos = -(-valid // len(replicas)) * len(replicas)
+                positions = torch.clamp(torch.arange(n_pos, device=device), max=valid - 1)
+                preds = replicas.run(lambda m, *a: infer(m, *a, seq_len=seq_len),
+                                     split=(positions,), shared=dev)
             else:
-                preds = window_infer_from_frames(cell, dev[0], positions, seq_len)
+                preds = infer(cell, *dev, torch.arange(valid, device=device), seq_len)
             # the previous batch's copy to the host waits while this one
             # is queued on the device
             if pending is not None:

@@ -1,4 +1,4 @@
-"""HTTP saliency-inference server (stdlib-only, threaded) on one GPU.
+"""HTTP saliency-inference server (stdlib-only, threaded).
 
 The port of ``cp360_tpu/serving/server.py``: a long-lived process holding
 the stage-1 model (and optionally the ConvLSTM) on the device, answering
@@ -36,6 +36,13 @@ runs ``pipelines/extract.py::stage1_batch`` (the equi->cube kernel on the
 device); ``true`` samples the faces on the host with cv2 and runs
 ``stage1_batch_faces``, or with ``upload_format: yuv420`` packs them as
 4:2:0 planes (half the bytes) for ``stage1_batch_faces_yuv``.
+
+With ``mesh_data`` N > 1 the model serves data-parallel from a
+``parallel/mesh.py::LocalReplicas`` over the first N local cards: every
+device batch is a multiple of N (its buckets and cap rounded as the JAX
+server rounds them) and splits into N row blocks, one per card.
+Predictions are those of one card; ``/healthz`` and ``/metrics`` report
+the data-parallel width.
 
 Channel order passes through unchanged: the offline pipeline feeds cv2's
 BGR bytes labeled RGB (a reference quirk), so bit-parity with offline
@@ -123,6 +130,8 @@ class RequestMetrics:
                        else b.stats[stat])
                 lines.append(
                     f'cp360_batcher_{metric}{{batcher="{name}"}} {val}')
+        lines.append("# TYPE cp360_data_parallel gauge")
+        lines.append(f"cp360_data_parallel {model.data_parallel}")
         lines.append("# TYPE cp360_sessions_active gauge")
         lines.append(f"cp360_sessions_active {len(model._sessions)}")
         return "\n".join(lines) + "\n"
@@ -130,7 +139,8 @@ class RequestMetrics:
 
 class SaliencyModel:
     """Holds the stage-1 model (and optionally the ConvLSTM + streaming
-    sessions) on one device; thread-safe predict()/temporal_*().
+    sessions) on one device, or replicated over ``mesh_data`` devices;
+    thread-safe predict()/temporal_*().
 
     Args:
       params: the JAX package's param tree of the backbone family ``arch``
@@ -139,21 +149,28 @@ class SaliencyModel:
       cfg: the serving configuration.
       clstm_params: the ConvLSTM param tree; enables temporal sessions.
       device: "cuda" (default; raises without a card) or "cpu".
+      devices: with ``mesh_data`` N > 1, the N replicas' devices (default:
+        the first N local devices of ``device``'s kind,
+        ``parallel/mesh.py::local_devices``).
     """
 
     def __init__(self, params: dict, cfg: Config, arch: str = "resnet50",
-                 clstm_params: dict | None = None, device="cuda"):
+                 clstm_params: dict | None = None, device="cuda", devices=None):
         from cp360_tpu_torch.compat.jax_params import backbone_from_params, clstm_from_params
+        from cp360_tpu_torch.parallel.mesh import LocalReplicas, local_devices
         from cp360_tpu_torch.serving.batcher import DynamicBatcher
 
-        if cfg.mesh_data > 1:
-            raise NotImplementedError(
-                "mesh_data > 1 (data-parallel serving) is not ported yet; "
-                'see ROADMAP.md, "parallel"')
         if cfg.upload_format not in ("rgb8", "yuv420"):
             raise ValueError(f"upload_format={cfg.upload_format!r} is not one of "
                              "'rgb8', 'yuv420'")
         self.device = resolve_device(device)
+        if cfg.mesh_data > 1:
+            devices = ([torch.device(d) for d in devices] if devices is not None
+                       else local_devices(self.device, cfg.mesh_data))
+            if len(devices) != cfg.mesh_data:
+                raise ValueError(f"mesh_data={cfg.mesh_data} needs {cfg.mesh_data} devices, "
+                                 f"got {len(devices)}")
+            self.device = devices[0]
         self.cfg = cfg
         # yuv420 packs faces sampled on the host, as the extraction does
         self._yuv = cfg.host_cube_remap and cfg.upload_format == "yuv420"
@@ -167,6 +184,13 @@ class SaliencyModel:
             self.clstm = clstm_from_params(clstm_params, self.compute_dtype,
                                            cfg.cube_pad, cfg.clstm_conv_impl,
                                            self.device)
+        # data-parallel serving: the stage-1 and window batches split over
+        # replicas on the devices (predictions equal one device's)
+        self.replicas = self.clstm_replicas = None
+        if cfg.mesh_data > 1:
+            self.replicas = LocalReplicas(self.model, devices)
+            if self.clstm is not None:
+                self.clstm_replicas = LocalReplicas(self.clstm, devices)
         self.request_metrics = RequestMetrics()
         self._warming = False  # warmup submits bypass the request timeout
         # host-side per-request work (decode, resize, remap); written
@@ -176,6 +200,12 @@ class SaliencyModel:
         self._lock = threading.Lock()
         self._sessions: dict = {}  # id -> session dict (frames on device)
         max_batch = max(1, cfg.serve_max_batch)
+        if self.replicas is not None:
+            # device batches are multiples of the data axis: round the
+            # operator's cap DOWN to one (min: one row per replica) so the
+            # buckets never pad a group above the configured limit
+            d = self.data_parallel
+            max_batch = max(d, (max_batch // d) * d)
         self._batcher = DynamicBatcher(
             self._run_stage1_batch, max_batch=max_batch,
             window_ms=cfg.serve_batch_window_ms, name="stage1")
@@ -186,6 +216,19 @@ class SaliencyModel:
             self._temporal_batcher = DynamicBatcher(
                 self._run_window_batch, max_batch=max_batch,
                 window_ms=cfg.serve_batch_window_ms, name="temporal")
+
+    @property
+    def data_parallel(self) -> int:
+        return len(self.replicas) if self.replicas is not None else 1
+
+    def _bucket(self, n: int, max_batch: int) -> int:
+        """The padded batch for n pending requests: a power of two, and with
+        replicas also a multiple of their count (even row blocks)."""
+        from cp360_tpu_torch.serving.batcher import bucket_size
+
+        b = bucket_size(n, max_batch)
+        d = self.data_parallel
+        return -(-b // d) * d
 
     def close(self) -> None:
         """Stop the batcher workers; pending and later requests fail."""
@@ -208,13 +251,11 @@ class SaliencyModel:
             self._warming = False
 
     def _warmup(self) -> None:
-        from cp360_tpu_torch.serving.batcher import bucket_size
-
         dummy = np.zeros((self.cfg.equi_w, self.cfg.equi_h, 3), np.uint8)
         prep = self._host_prep(dummy)
         b, seen = 1, set()
         while True:
-            bs = bucket_size(b, self._batcher.max_batch)
+            bs = self._bucket(b, self._batcher.max_batch)
             if bs not in seen:
                 seen.add(bs)
                 self._run_stage1_batch([prep] * bs)
@@ -230,7 +271,7 @@ class SaliencyModel:
             window = tuple(self._sessions[sid]["frames"])
             b = 2
             while True:
-                bs = bucket_size(b, self._temporal_batcher.max_batch)
+                bs = self._bucket(b, self._temporal_batcher.max_batch)
                 self._run_window_batch([window] * bs)
                 if bs >= self._temporal_batcher.max_batch:
                     break
@@ -273,22 +314,23 @@ class SaliencyModel:
         """
         from cp360_tpu_torch.pipelines.extract import (
             stage1_batch, stage1_batch_faces, stage1_batch_faces_yuv)
-        from cp360_tpu_torch.serving.batcher import bucket_size
+
+        def step(model, *parts):
+            if self._yuv:
+                return stage1_batch_faces_yuv(model, *parts, out_dtype=torch.float16)
+            if self.cfg.host_cube_remap:
+                return stage1_batch_faces(model, parts[0], out_dtype=torch.float16)
+            return stage1_batch(model, parts[0], self.cfg.cube_dim, out_dtype=torch.float16)
 
         n = len(preps)
-        b = bucket_size(n, self._batcher.max_batch)
+        b = self._bucket(n, self._batcher.max_batch)
         padded = list(preps) + [preps[-1]] * (b - n)
         with torch.no_grad():
             parts = [torch.from_numpy(np.stack(p)).to(self.device) for p in zip(*padded)]
-            if self._yuv:
-                scores, sal = stage1_batch_faces_yuv(self.model, *parts,
-                                                     out_dtype=torch.float16)
-            elif self.cfg.host_cube_remap:
-                scores, sal = stage1_batch_faces(self.model, parts[0],
-                                                 out_dtype=torch.float16)
+            if self.replicas is not None:
+                scores, sal = self.replicas.run(step, split=parts)
             else:
-                scores, sal = stage1_batch(self.model, parts[0], self.cfg.cube_dim,
-                                           out_dtype=torch.float16)
+                scores, sal = step(self.model, *parts)
         sal_np = sal.cpu().numpy()
         return [(scores[i], sal_np[i]) for i in range(n)]
 
@@ -344,14 +386,17 @@ class SaliencyModel:
         batched predictions equal to running each window alone.
         """
         from cp360_tpu_torch.pipelines.temporal import window_infer
-        from cp360_tpu_torch.serving.batcher import bucket_size
 
         n = len(windows)
-        b = bucket_size(n, self._temporal_batcher.max_batch)
+        b = self._bucket(n, self._temporal_batcher.max_batch)
         padded = list(windows) + [windows[-1]] * (b - n)
         with torch.no_grad():
             batch = torch.stack([torch.stack(w) for w in padded])  # [b,T,6,h,w,K]
-            sal_np = window_infer(self.clstm, batch).cpu().numpy()
+            if self.clstm_replicas is not None:
+                sal = self.clstm_replicas.run(window_infer, split=(batch,))
+            else:
+                sal = window_infer(self.clstm, batch)
+            sal_np = sal.cpu().numpy()
         return [sal_np[i] for i in range(n)]
 
     def temporal_push(self, sid: str, frame_u8: np.ndarray):
@@ -462,6 +507,7 @@ def make_handler(model: SaliencyModel):
                     "frame_hw": list(model.cfg.frame_hw),
                     "temporal": model.clstm is not None,
                     "seq_len": model.cfg.seq_len,
+                    "data_parallel": model.data_parallel,
                     "batching": {
                         "max_batch": model._batcher.max_batch,
                         "window_ms": model._batcher.window_s * 1000.0,

@@ -170,14 +170,31 @@ def run_supervised(module: str, argv: Optional[List[str]], watch_paths: Sequence
     """Relaunch the CLI ``python -m <module>`` under :func:`supervise` with
     this process's arguments (``argv``, or ``sys.argv[1:]``) minus
     ``--supervise``; ``resume`` adds ``--resume`` so a restart continues
-    instead of redoing.  ``module`` must be one of the port's CLIs."""
+    instead of redoing.  ``module`` must be one of the port's CLIs.  One
+    worker of a multi-process job is refused: supervise the whole launch."""
     if not module.startswith("cp360_tpu_torch."):
         raise ValueError(f"supervised child {module!r} is not a cp360_tpu_torch module")
+    refuse_multiprocess_worker()
     child = strip_supervise_flag(list(argv) if argv is not None else sys.argv[1:])
     if resume and "--resume" not in child:
         child.append("--resume")
     return supervise([sys.executable, "-m", module] + child, watch_paths=watch_paths,
                      stall_timeout_s=stall_timeout_s, grace_s=grace_s)
+
+
+def refuse_multiprocess_worker() -> None:
+    """Exit when this process is one worker of a multi-process job: a
+    relaunched worker cannot rejoin the running job, and every peer would
+    hang in its next collective."""
+    from cp360_tpu_torch.parallel.mesh import dist_requested, env_process_count
+
+    if dist_requested() and env_process_count() > 1:
+        raise SystemExit(
+            "--supervise cannot wrap ONE worker of a multi-process job: "
+            "a relaunched worker cannot rejoin the running "
+            "torch.distributed job and every peer would hang in "
+            "its next collective. Supervise the whole launch instead "
+            "(wrap `python -m cp360_tpu_torch.cli.launch ...`).")
 
 
 def _kill_group(proc: subprocess.Popen, grace_s: float) -> None:

@@ -205,13 +205,15 @@ def test_entry_points_need_a_card_or_cpu(resnet_tree):
         serve_cli.main(["--port", "0"])
 
 
-@pytest.mark.parametrize("kw,exc,match", [
-    (dict(mesh_data=2), NotImplementedError, 'ROADMAP.md, "parallel"'),
-    (dict(upload_format="yuv422"), ValueError, "upload_format"),  # yuv420 runs
+@pytest.mark.parametrize("kw,devices,exc,match", [
+    # mesh_data serves from replicas (tests/test_torch_parallel.py); a device
+    # list of another length is refused
+    (dict(mesh_data=2), ["cpu"] * 3, ValueError, "mesh_data=2 needs 2 devices, got 3"),
+    (dict(upload_format="yuv422"), None, ValueError, "upload_format"),  # yuv420 runs
 ])
-def test_unported_serving_options_raise(resnet_tree, kw, exc, match):
+def test_unported_serving_options_raise(resnet_tree, kw, devices, exc, match):
     with pytest.raises(exc, match=match):
-        SaliencyModel(resnet_tree, _cfg(**kw), device="cpu")
+        SaliencyModel(resnet_tree, _cfg(**kw), device="cpu", devices=devices)
 
 
 def test_config_matches_jax_config():
@@ -244,10 +246,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_refusals_name_their_roadmap_item(tmp_path, monkeypatch):
-    """A refusal names the ROADMAP.md item that ports what it refuses
-    ("parallel"), never an item number, which a renumbered queue would make
-    wrong.  ``.pth`` weights are no longer refused: each CLI reads the file
-    it is given (tests/test_torch_convert.py holds what they compute)."""
+    """A refusal never names a ROADMAP.md item by number, which a
+    renumbered queue would make wrong, and since the parallel slice no
+    option is refused as unported: ``--data-parallel`` runs (replicas,
+    tests/test_torch_parallel.py) and reaches the weights.  ``.pth`` weights
+    are no longer refused: each CLI reads the file it is given
+    (tests/test_torch_convert.py holds what they compute)."""
     import importlib
     import re
 
@@ -255,15 +259,14 @@ def test_refusals_name_their_roadmap_item(tmp_path, monkeypatch):
     for path in _port_files():
         text = path.read_text()
         assert not numbered.search(text), f"{path}: {numbered.search(text).group(0)}"
+        assert 'ROADMAP.md, "' not in text and "NotImplementedError" not in text, path
     monkeypatch.chdir(tmp_path)  # no ./config.yaml: built-in defaults
-    for cli, argv in (("extract_features", ["--data-parallel", "2"]),
+    for cli, argv in (("extract_features", ["--data-parallel", "2", "--weights", "w.pth"]),
                       ("test_temporal", ["--model", "m.pth", "--dir", "d",
                                          "--data-parallel", "2"])):
         mod = importlib.import_module(f"cp360_tpu_torch.cli.{cli}")
-        with pytest.raises(NotImplementedError) as ei:
+        with pytest.raises(FileNotFoundError, match="w.pth|m.pth"):
             mod.main(argv + ["--device", "cpu"])
-        assert 'ROADMAP.md, "parallel"' in str(ei.value)
-        assert "cp360-convert" not in str(ei.value) and "JAX" not in str(ei.value)
     # a .pth goes to the torch reader: a missing one is a missing file
     for cli, argv in (("extract_features", ["--weights", "w.pth"]),
                       ("test_temporal", ["--model", "m.pth", "--dir", "d"]),

@@ -157,7 +157,8 @@ def test_resumed_suffix_is_bit_identical(inputs, models, streamed):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(pipeline_stages=5), NotImplementedError, 'ROADMAP.md, "parallel"'),
+    # pipeline_stages runs when it divides seq_len (tests/test_torch_parallel.py)
+    (dict(pipeline_stages=3), ValueError, "pipeline_stages=3 must divide seq_len=5"),
     (dict(upload_format="yuv422"), ValueError, "upload_format"),
 ])
 def test_stream_refusals(inputs, models, kw, exc, match):

@@ -370,7 +370,7 @@ def test_extract_refusals(resnet_tree, tmp_path, kw, exc):
                                str(tmp_path), output_motion=True)
 
 
-# unported options raise by the name of the ROADMAP.md item that ports them
+# options the port refuses, in the JAX package's words where it has them
 @pytest.mark.parametrize("cli,argv,exc", [
     ("extract_features", ["-om", "--set", "flow_backend=lucas_kanade", "--device", "cpu"],
      ValueError),
@@ -378,10 +378,11 @@ def test_extract_refusals(resnet_tree, tmp_path, kw, exc):
                           "--set", "upload_format=yuv422", "--device", "cpu"],
      ValueError),
     ("extract_features", ["--set", "transfer_codec=auto", "--device", "cpu"], ValueError),
-    ("extract_features", ["--data-parallel", "2", "--device", "cpu"], NotImplementedError),
+    ("extract_features", ["--data-parallel", "2", "--set", "extract_batch=3", "--device",
+                          "cpu"], ValueError),
     ("extract_features", ["--mode", "resnet200", "--device", "cpu"], ValueError),
     ("test_temporal", ["--model", "x.npz", "--dir", "d", "--data-parallel", "2",
-                       "--device", "cpu"], NotImplementedError),
+                       "--batch-windows", "3", "--device", "cpu"], ValueError),
     ("test_temporal", ["--model", "x.npz", "--dir", "d", "--set",
                        "transfer_codec=auto", "--device", "cpu"], ValueError),
 ])
@@ -390,8 +391,8 @@ def test_cli_refusals(tmp_path, monkeypatch, cli, argv, exc):
 
     monkeypatch.chdir(tmp_path)  # no ./config.yaml: built-in defaults
     mod = importlib.import_module(f"cp360_tpu_torch.cli.{cli}")
-    with pytest.raises(exc, match='ROADMAP.md, "parallel"|flow backend|upload_format|'
-                                  "transfer_codec|unknown --mode 'resnet200'"):
+    with pytest.raises(exc, match="must be divisible by the mesh data axis|flow backend|"
+                                  "upload_format|transfer_codec|unknown --mode 'resnet200'"):
         mod.main(argv)
 
 
