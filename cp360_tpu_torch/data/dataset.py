@@ -29,6 +29,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from cp360_tpu_torch import native
+from cp360_tpu_torch.utils.profiling import annotate
 
 
 def read_split(path: str) -> List[str]:
@@ -181,6 +182,10 @@ class PrefetchLoader:
 
     Iterating the loader itself gives epoch 0, then 1, ... of
     :meth:`iter_epoch`, counted from the loader's creation.
+
+    Spans (``utils/profiling.py::annotate``): ``loader.read`` for each
+    batch the worker reads, ``loader.wait`` for each wait of the consumer
+    on the queue.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
@@ -255,7 +260,11 @@ class PrefetchLoader:
         def worker():
             try:
                 for idxs in batches:
-                    if stop.is_set() or not put(self.load_batch(idxs)):
+                    if stop.is_set():
+                        return
+                    with annotate("loader.read"):
+                        batch = self.load_batch(idxs)
+                    if not put(batch):
                         return
                 put(None)
             except Exception as e:  # surfaced to the consumer, raised there
@@ -265,7 +274,8 @@ class PrefetchLoader:
         th.start()
         try:
             while True:
-                item = q.get()
+                with annotate("loader.wait"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, Exception):

@@ -21,6 +21,13 @@ pipelined window inference (``pipelines/temporal.py::
 window_infer_from_frames_pipelined``): the seq_len time steps run as P
 stages over P devices of the model's kind, the windows as
 gcd(windows, ``pipeline_microbatches``) microbatches.
+
+Spans (``utils/profiling.py::annotate``): ``stream.decode`` for each frame
+read or skipped, ``stream.remap`` for each remap job on the pool, and on
+the calling thread for each batch ``stream.remap_wait`` (the wait for its
+remap jobs), ``stream.stage`` (host staging and the upload),
+``stream.stage1``, ``stream.stage2`` (the windows) and ``stream.fetch``
+(the maps back to the host).
 """
 
 from __future__ import annotations
@@ -41,8 +48,15 @@ from cp360_tpu_torch.pipelines.extract import (
 from cp360_tpu_torch.parallel.pipeline import make_pipe_devices
 from cp360_tpu_torch.pipelines.temporal import (
     window_infer_from_frames, window_infer_from_frames_pipelined)
+from cp360_tpu_torch.utils.profiling import annotate
 
 REMAP_WORKERS = 4  # host threads cube-sampling decoded frames (cv2 drops the GIL)
+
+
+def _remap(frame: np.ndarray, cube_dim: int, yuv: bool):
+    """One remap-pool job: a decoded frame's faces as they are uploaded."""
+    with annotate("stream.remap"):
+        return host_faces_for_upload(frame, cube_dim, yuv)
 
 
 def stream_video_saliency(model: Backbone, cell: ConvLSTM, vid_path: str, cfg: Config,
@@ -101,17 +115,20 @@ def _stream_frames(model: Backbone, cell: ConvLSTM, cfg: Config, stage1_batch: i
         """[(cnt, faces future)] -> [(id, saliency)] of the batch's real
         windows; the carry moves on."""
         nonlocal carry, carry_cnts, staged
-        items = [f.result() for _, f in batch]
+        with annotate("stream.remap_wait"):
+            items = [f.result() for _, f in batch]
         # the tail batch is padded to stage1_batch with its last frame, so
         # every stage-1 batch has one shape; pad frames reach no returned window
         pad = stage1_batch - len(items)
         items += [items[-1]] * pad
         parts = list(zip(*items)) if yuv else [items]  # yuv: (Y, UV) per frame
-        hosts = [_stage(part, pin) for part in parts]
-        xs = [h.to(device, non_blocking=True) for h in hosts]
+        with annotate("stream.stage"):
+            hosts = [_stage(part, pin) for part in parts]
+            xs = [h.to(device, non_blocking=True) for h in hosts]
         step = stage1_batch_faces_yuv if yuv else stage1_batch_faces
         with torch.no_grad():
-            scores, _ = step(model, *xs, out_dtype=torch.float16)  # [B, 6, h, w, C]
+            with annotate("stream.stage1"):
+                scores, _ = step(model, *xs, out_dtype=torch.float16)  # [B, 6, h, w, C]
             cnts = [c for c, _ in batch] + [batch[-1][0]] * pad
             frames = scores if carry is None else torch.cat([carry, scores])
             all_cnts = cnts if carry is None else carry_cnts + cnts
@@ -122,13 +139,15 @@ def _stream_frames(model: Backbone, cell: ConvLSTM, cfg: Config, stage1_batch: i
                 # every position, pad windows included: one window-batch
                 # shape after the first batch
                 positions = torch.arange(frames.shape[0] - seq_len + 1, device=device)
-                if pipe_devices is not None:
-                    n_micro = max(1, math.gcd(len(positions), cfg.pipeline_microbatches))
-                    preds = window_infer_from_frames_pipelined(
-                        cell, frames, positions, pipe_devices, n_micro, seq_len)
-                else:
-                    preds = window_infer_from_frames(cell, frames, positions, seq_len)
-                preds = preds.cpu().numpy()
+                with annotate("stream.stage2"):
+                    if pipe_devices is not None:
+                        n_micro = max(1, math.gcd(len(positions), cfg.pipeline_microbatches))
+                        preds = window_infer_from_frames_pipelined(
+                            cell, frames, positions, pipe_devices, n_micro, seq_len)
+                    else:
+                        preds = window_infer_from_frames(cell, frames, positions, seq_len)
+                with annotate("stream.fetch"):
+                    preds = preds.cpu().numpy()
                 # the offline numbering ({position + seq_len - 1:05},
                 # test_temporal.py:86-88): artifact counters start at 2
                 out = [(all_cnts[k + seq_len - 1] - 2, preds[k]) for k in range(real_windows)]
@@ -149,18 +168,21 @@ def _stream_frames(model: Backbone, cell: ConvLSTM, cfg: Config, stage1_batch: i
         fbatch = []
         for i in range(total):
             if i < skip_to:
-                if not cap.grab():  # decode-skip: no retrieve, no remap
+                with annotate("stream.decode"):
+                    grabbed = cap.grab()
+                if not grabbed:  # decode-skip: no retrieve, no remap
                     break
                 continue
-            ok, frame = cap.read()
+            with annotate("stream.decode"):
+                ok, frame = cap.read()
             if not ok:
                 break
             if i == skip_to:
                 prev = frame
                 continue
             cnt = i + 1  # reference numbering
-            fbatch.append((cnt, remap_pool.submit(host_faces_for_upload,
-                                                  _resize_frame(prev, cfg), cfg.cube_dim, yuv)))
+            fbatch.append((cnt, remap_pool.submit(_remap, _resize_frame(prev, cfg),
+                                                  cfg.cube_dim, yuv)))
             prev = frame
             if len(fbatch) == stage1_batch:
                 yield from process(fbatch)

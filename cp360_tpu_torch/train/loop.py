@@ -57,6 +57,7 @@ from cp360_tpu_torch.ops.resample import cube_to_equi
 from cp360_tpu_torch.parallel import mesh as pmesh
 from cp360_tpu_torch.parallel.pipeline import make_pipe_devices, pipelined_rollout
 from cp360_tpu_torch.train import losses as L
+from cp360_tpu_torch.utils.profiling import annotate, count
 
 TMP_LOSS_LEN = 3  # pairs of consecutive predictions entering the losses
 PARTS = ("smooth", "temporal", "mask")
@@ -285,6 +286,10 @@ def make_train_step(cfg: Config, model: ConvLSTM, optimizer: torch.optim.Adam,
     and the metrics are summed over the data group, and the update and the
     metrics equal the one-device step's on the global batch.
     ``pipe_devices``: the pipe's stages (see :func:`make_loss_fn`).
+
+    Spans (``utils/profiling.py::annotate``): ``train.forward`` (the loss),
+    ``train.backward`` (the gradients, summed over the data group) and
+    ``train.optimizer`` (clipping, the schedule and Adam's update).
     """
     check_config(cfg)
     loss_fn = make_loss_fn(cfg, model, pipe_devices)
@@ -295,21 +300,24 @@ def make_train_step(cfg: Config, model: ConvLSTM, optimizer: torch.optim.Adam,
 
     def step(seq, flows) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
-        loss, parts = loss_fn(seq, flows)
-        loss.backward()
-        if data_group is not None:
-            for p in params:
-                pmesh.all_reduce_(p.grad, data_group)
-            vals = torch.stack([loss.detach(), *(parts[k].detach() for k in PARTS)])
-            vals = pmesh.all_reduce_(vals, data_group)
-            loss, parts = vals[0], dict(zip(PARTS, vals[1:]))
-        if cfg.grad_clip_norm > 0.0:
-            clip_by_global_norm_([p.grad for p in params], cfg.grad_clip_norm, model_group)
-        if callable(sched):
-            lr = sched(update_count(optimizer))
-            for group in optimizer.param_groups:
-                group["lr"] = lr
-        optimizer.step()
+        with annotate("train.forward"):
+            loss, parts = loss_fn(seq, flows)
+        with annotate("train.backward"):
+            loss.backward()
+            if data_group is not None:
+                for p in params:
+                    pmesh.all_reduce_(p.grad, data_group)
+                vals = torch.stack([loss.detach(), *(parts[k].detach() for k in PARTS)])
+                vals = pmesh.all_reduce_(vals, data_group)
+                loss, parts = vals[0], dict(zip(PARTS, vals[1:]))
+        with annotate("train.optimizer"):
+            if cfg.grad_clip_norm > 0.0:
+                clip_by_global_norm_([p.grad for p in params], cfg.grad_clip_norm, model_group)
+            if callable(sched):
+                lr = sched(update_count(optimizer))
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+            optimizer.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
 
     return step
@@ -496,10 +504,16 @@ class GracefulShutdown:
 
 
 def batch_to_device(batch, device: torch.device):
-    """A numpy (or Quantized numpy) batch -> tensors on ``device``."""
-    if isinstance(batch, Quantized):
-        return batch.to(device)
-    return torch.as_tensor(batch).to(device)
+    """A numpy (or Quantized numpy) batch -> tensors on ``device``, in
+    the span ``train.h2d``; the counter ``h2d.bytes`` adds the batch's
+    bytes."""
+    with annotate("train.h2d"):
+        if isinstance(batch, Quantized):
+            count("h2d.bytes", sum(a.nbytes for a in batch))
+            return batch.to(device)
+        x = torch.as_tensor(batch)
+        count("h2d.bytes", x.nbytes)
+        return x.to(device)
 
 
 def _read_best(ckdir: str, log_fn):

@@ -1,18 +1,169 @@
-"""Profiling hooks (``torch.profiler``) and a step timer.
+"""Profiling hooks (``torch.profiler``), the port's span and counter
+recorder, and a step timer.
 
 The port of ``cp360_tpu/utils/profiling.py``: an optional trace of a span
 (config ``profile_dir`` / the train CLI's ``--profile-dir``), named
 spans inside it, and :class:`StepTimer`.  The trace is Chrome-trace JSON
 (``chrome://tracing``, Perfetto); on a card it holds the CUDA kernels,
 the hand kernels of ``csrc/`` included.
+
+Recording follows the profiler: spans and counters are kept while a
+``torch.profiler`` runs in the process (torch's own process-wide flag,
+``torch.autograd.profiler._is_profiler_enabled``, set from the
+profiler's start to its stop).  A span (:func:`annotate`) on a thread the
+profiler records lands in its trace as a ``user_annotation`` event, on
+the clock of the trace's CUDA kernels, and in the in-memory
+:data:`STORE`.  The profiler records the thread that started it, not the
+pools and workers that thread feeds, so a span on any other thread goes
+to the store alone.  A counter (:func:`count`) adds under the same gate.
+With nothing profiling, a span costs one check and records nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import sys
+import threading
 import time
-from typing import Optional
+from typing import Dict, List, NamedTuple, Optional
+
+MAX_SPANS = 1 << 17  # the store's bound: later spans are dropped and counted
+
+
+class Span(NamedTuple):
+    """One recorded span, on the host's ``time.perf_counter_ns`` clock."""
+    name: str
+    tid: int  # the native thread id, as the profiler's trace names threads
+    start_ns: int
+    end_ns: int
+    traced: bool  # also in the profiler's trace (entered on a profiled thread)
+
+
+class SpanStore:
+    """Spans and counters recorded while a profiler records.  Holds at most
+    ``max_spans`` spans (:data:`MAX_SPANS`, about 25 MB); ``dropped``
+    counts those that came after."""
+
+    def __init__(self, max_spans: int = MAX_SPANS):
+        self.max_spans = max_spans
+        self.dropped = 0
+        self._spans: List[Span] = []
+        self._counters: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def add(self, span: Span) -> None:
+        with self._lock:
+            if len(self._spans) < self.max_spans:
+                self._spans.append(span)
+            else:
+                self.dropped += 1
+
+    def count(self, name: str, n: float) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def counters(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._counters)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._counters.clear()
+            self.dropped = 0
+
+
+STORE = SpanStore()
+
+
+def _recording() -> bool:
+    """Whether a torch profiler runs in this process (torch unloaded: no)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _profiled() -> bool:
+    """Whether a torch profiler records this thread."""
+    return sys.modules["torch"].autograd._profiler_enabled()
+
+
+class _Annotation:
+    __slots__ = ("name", "_fn", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._fn = self._t0 = None
+
+    def __enter__(self):
+        if _recording():
+            if _profiled():
+                import torch
+
+                self._fn = torch.profiler.record_function(self.name)
+                self._fn.__enter__()
+            self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self._t0 is not None:
+            t1 = time.perf_counter_ns()
+            STORE.add(Span(self.name, threading.get_native_id(), self._t0, t1,
+                           self._fn is not None))
+        if self._fn is not None:
+            self._fn.__exit__(*exc)
+        return False
+
+
+def annotate(name: str):
+    """Named span: in the profiler's timeline on a profiled thread, and in
+    :data:`STORE` wherever it runs while a profiler runs."""
+    return _Annotation(name)
+
+
+def count(name: str, n: float) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler runs."""
+    if _recording():
+        STORE.count(name, n)
+
+
+def spans() -> List[Span]:
+    return STORE.spans()
+
+
+def counters() -> Dict[str, float]:
+    return STORE.counters()
+
+
+def clear() -> None:
+    STORE.clear()
+
+
+def _add_untraced_spans(path: str, since_ns: int) -> None:
+    """Add the store's spans from ``since_ns`` on that are not in the trace
+    at ``path`` (those of unprofiled threads) to it.  The trace's
+    ``ts + baseTimeNanoseconds / 1000`` is the wall clock in microseconds,
+    so each span is placed by the wall clock's offset from
+    ``perf_counter_ns``."""
+    extra = [s for s in STORE.spans() if not s.traced and s.start_ns >= since_ns]
+    if not extra:
+        return
+    offset_ns = time.time_ns() - time.perf_counter_ns()
+    with open(path) as f:
+        trace = json.load(f)
+    base_us = trace.get("baseTimeNanoseconds", 0) / 1000
+    pid = os.getpid()
+    trace.setdefault("traceEvents", []).extend(
+        {"ph": "X", "cat": "user_annotation", "name": s.name, "pid": pid, "tid": s.tid,
+         "ts": (s.start_ns + offset_ns) / 1000 - base_us, "dur": (s.end_ns - s.start_ns) / 1000}
+        for s in extra)
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 @contextlib.contextmanager
@@ -20,8 +171,11 @@ def maybe_profile(profile_dir: Optional[str]):
     """Trace the enclosed span with ``torch.profiler`` (CPU activity, and
     CUDA when a card is present) if ``profile_dir`` is given, and write
     ``<profile_dir>/trace_<pid>_<time>.json`` when the span ends, however
-    it ends.  The profiler keeps its events in host memory until then, so
-    profile a bounded span (the train loop profiles its epochs only)."""
+    it ends, with the spans of the threads the profiler does not record
+    (the loader's worker, the stream's remap pool) added from the store,
+    which is then cleared.  The profiler keeps its events in host memory
+    until then, so profile a bounded span (the train loop profiles its
+    epochs only)."""
     if not profile_dir:
         yield
         return
@@ -33,22 +187,16 @@ def maybe_profile(profile_dir: Optional[str]):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
     prof = profile(activities=activities, acc_events=True)  # one cycle: keep its events
+    since = time.perf_counter_ns()
     prof.start()
     try:
         yield
     finally:
         prof.stop()
-        prof.export_chrome_trace(
-            os.path.join(profile_dir, f"trace_{os.getpid()}_{int(time.time())}.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named span (shows in the profiler timeline)."""
-    import torch
-
-    with torch.profiler.record_function(name):
-        yield
+        path = os.path.join(profile_dir, f"trace_{os.getpid()}_{int(time.time())}.json")
+        prof.export_chrome_trace(path)
+        _add_untraced_spans(path, since)
+        STORE.clear()
 
 
 class StepTimer:
