@@ -227,15 +227,18 @@ def _equi2cube_maps_f32(cube_dim: int, h: int, w: int):
 
 def host_equi_to_cube_u8(frame_u8: np.ndarray, cube_dim: int) -> np.ndarray:
     """Host-side equi->cube of one [H, 2H, 3] u8 frame via cv2.remap (the
-    same sampling maps as the device path; u8 output)."""
+    same sampling maps as the device path; u8 output).  One call samples
+    the six faces as one [6 cd, cd] map: each output pixel depends on its
+    own map entry alone, so the faces are those of six calls, bit for bit,
+    and a remap thread takes the GIL back once a frame, not six times."""
     import cv2
 
     h, w = frame_u8.shape[:2]
     in_x, in_y = _equi2cube_maps_f32(cube_dim, h, w)
-    faces = np.empty((6, cube_dim, cube_dim, 3), np.uint8)
-    for f in range(6):
-        faces[f] = cv2.remap(frame_u8, in_x[f], in_y[f], cv2.INTER_LINEAR)
-    return faces
+    rows = 6 * cube_dim
+    faces = cv2.remap(frame_u8, in_x.reshape(rows, cube_dim), in_y.reshape(rows, cube_dim),
+                      cv2.INTER_LINEAR)
+    return faces.reshape(6, cube_dim, cube_dim, 3)
 
 
 # ---- the extraction loop ------------------------------------------------------

@@ -22,18 +22,31 @@ window_infer_from_frames_pipelined``): the seq_len time steps run as P
 stages over P devices of the model's kind, the windows as
 gcd(windows, ``pipeline_microbatches``) microbatches.
 
+A decode thread owns the capture: it reads (or, resuming, grabs) each
+frame and submits its remap in the serial order, at most
+``DECODE_AHEAD_BATCHES`` stage-1 batches of frames ahead of those the
+calling thread has taken, so a batch's frames are decoded and remapped
+while the device runs the batch before.  Its error is raised at the
+caller after the batches before it; closing the generator stops and
+joins it before the capture is released.
+
 Spans (``utils/profiling.py::annotate``): ``stream.decode`` for each frame
-read or skipped, ``stream.remap`` for each remap job on the pool, and on
-the calling thread for each batch ``stream.remap_wait`` (the wait for its
-remap jobs), ``stream.stage`` (host staging and the upload),
-``stream.stage1``, ``stream.stage2`` (the windows) and ``stream.fetch``
-(the maps back to the host).
+read or skipped (on the decode thread), ``stream.remap`` for each remap
+job on the pool, and on the calling thread ``stream.decode_wait`` for each
+wait for the decode thread's next frame, and for each batch
+``stream.remap_wait`` (the wait for its remap jobs), ``stream.stage``
+(host staging and the upload), ``stream.stage1``, ``stream.stage2`` (the
+windows) and ``stream.fetch`` (the maps back to the host).  Counters:
+``stream.decode_taken``, the frames the caller took, and
+``stream.decode_ready``, those of them already decoded when it asked.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 import math
+import queue
+import threading
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -48,9 +61,11 @@ from cp360_tpu_torch.pipelines.extract import (
 from cp360_tpu_torch.parallel.pipeline import make_pipe_devices
 from cp360_tpu_torch.pipelines.temporal import (
     window_infer_from_frames, window_infer_from_frames_pipelined)
-from cp360_tpu_torch.utils.profiling import annotate
+from cp360_tpu_torch.utils.profiling import annotate, count
 
 REMAP_WORKERS = 4  # host threads cube-sampling decoded frames (cv2 drops the GIL)
+DECODE_AHEAD_BATCHES = 2  # stage-1 batches of frames the decode thread may read ahead
+_END = object()  # the decode thread's last item
 
 
 def _remap(frame: np.ndarray, cube_dim: int, yuv: bool):
@@ -163,33 +178,74 @@ def _stream_frames(model: Backbone, cell: ConvLSTM, cfg: Config, stage1_batch: i
     # index skip_to - 1.
     skip_to = max(0, start_output + 3 - seq_len - 2)
     remap_pool = ThreadPoolExecutor(max_workers=REMAP_WORKERS)
-    try:
-        prev = None
-        fbatch = []
-        for i in range(total):
-            if i < skip_to:
+    ready = queue.SimpleQueue()  # (cnt, faces future), then _END or an error
+    ahead = threading.Semaphore(DECODE_AHEAD_BATCHES * stage1_batch)  # frames read, not taken
+    stop = threading.Event()
+
+    def produce():
+        """Decode and submit each frame's remap, in the serial order; owns
+        ``cap`` until it returns."""
+        try:
+            prev = None
+            for i in range(total):
+                if i < skip_to:
+                    if stop.is_set():
+                        return
+                    with annotate("stream.decode"):
+                        grabbed = cap.grab()
+                    if not grabbed:  # decode-skip: no retrieve, no remap
+                        break
+                    continue
+                ahead.acquire()
+                if stop.is_set():
+                    return
                 with annotate("stream.decode"):
-                    grabbed = cap.grab()
-                if not grabbed:  # decode-skip: no retrieve, no remap
+                    ok, frame = cap.read()
+                if not ok:
                     break
-                continue
-            with annotate("stream.decode"):
-                ok, frame = cap.read()
-            if not ok:
-                break
-            if i == skip_to:
-                prev = frame
-                continue
-            cnt = i + 1  # reference numbering
-            fbatch.append((cnt, remap_pool.submit(_remap, _resize_frame(prev, cfg),
+                if i == skip_to:
+                    prev = frame
+                    continue
+                cnt = i + 1  # reference numbering
+                ready.put((cnt, remap_pool.submit(_remap, _resize_frame(prev, cfg),
                                                   cfg.cube_dim, yuv)))
-            prev = frame
+                prev = frame
+            ready.put(_END)
+        except BaseException as e:  # raised at the caller, in order
+            ready.put(e)
+
+    def take():
+        """The next (cnt, faces future), or None after the last frame."""
+        try:
+            item, queued = ready.get_nowait(), True
+        except queue.Empty:
+            with annotate("stream.decode_wait"):
+                item, queued = ready.get(), False
+        if item is _END:
+            return None
+        if isinstance(item, BaseException):
+            raise item
+        count("stream.decode_taken", 1)
+        count("stream.decode_ready", int(queued))
+        ahead.release()
+        return item
+
+    producer = threading.Thread(target=produce, name="stream-decode", daemon=True)
+    producer.start()
+    try:
+        fbatch = []
+        while (item := take()) is not None:
+            fbatch.append(item)
             if len(fbatch) == stage1_batch:
                 yield from process(fbatch)
                 fbatch = []
         if fbatch:
             yield from process(fbatch)
     finally:
-        # an abandoned generator or an exception must not leak the capture
+        # an abandoned generator or an exception must not leak the capture,
+        # and a capture is released only once its reader has stopped
+        stop.set()
+        ahead.release()  # a decode thread waiting for room sees the stop
+        producer.join()
         cap.release()
         remap_pool.shutdown(wait=True, cancel_futures=True)

@@ -9,10 +9,14 @@ the JAX package's; the stream against the JAX resnet18 stream 1e-4
 against its offline path;
 against the port's offline extract -> ``infer_video`` path 1e-5 (the same
 f16 CAM cubes through the same code, in other window batches); a resumed
-suffix, and the CLI's maps against the library's, bit for bit.
+suffix, and the CLI's maps against the library's, bit for bit.  The
+decode thread through a stub capture: how far it reads ahead, a read error
+raised in order, closing, and the resume's grabs.
 """
 
 import os
+import threading
+import time
 
 import cv2
 import jax
@@ -27,7 +31,8 @@ from cp360_tpu_torch.cli import stream_saliency
 from cp360_tpu_torch.compat import jax_params
 from cp360_tpu_torch.config import Config
 from cp360_tpu_torch.pipelines.extract import extract_video
-from cp360_tpu_torch.pipelines.stream import stream_video_saliency
+from cp360_tpu_torch.pipelines.stream import (
+    DECODE_AHEAD_BATCHES, _stream_frames, stream_video_saliency)
 from cp360_tpu_torch.pipelines.temporal import infer_video
 
 torch.set_num_threads(2)
@@ -81,6 +86,50 @@ def _frames(video):
         if not ok:
             return frames
         frames.append(frame)
+
+
+class StubCapture:
+    """``read``, ``grab`` and ``release`` over ``n`` frames (``frames`` in a
+    cycle), counting each; the read of index ``fail_at`` raises."""
+
+    def __init__(self, frames, n, fail_at=None):
+        self.frames, self.n, self.fail_at = frames, n, fail_at
+        self.pos = self.reads = self.grabs = self.releases = 0
+        self.retrieved = []
+
+    def grab(self):
+        if self.pos >= self.n:
+            return False
+        self.pos += 1
+        self.grabs += 1
+        return True
+
+    def read(self):
+        if self.pos == self.fail_at:
+            raise RuntimeError(f"corrupt frame {self.pos}")
+        if self.pos >= self.n:
+            return False, None
+        self.retrieved.append(self.pos)
+        self.reads += 1
+        self.pos += 1
+        return True, self.frames[(self.pos - 1) % len(self.frames)].copy()
+
+    def release(self):
+        self.releases += 1
+
+
+def _stub_stream(models, cap, batch, start_output=0):
+    return _stream_frames(*models, Config(**CFG), batch, cap, cap.n, start_output)
+
+
+def _settle(cap, want, timeout=10.0):
+    """Wait until the decode thread has read ``want`` frames, or ``timeout``
+    has passed, and a little longer: its read count then."""
+    end = time.monotonic() + timeout
+    while cap.reads < want and time.monotonic() < end:
+        time.sleep(0.002)
+    time.sleep(0.02)
+    return cap.reads
 
 
 def test_stream_cams_equal_jax_to_one_f16_ulp(inputs, models):
@@ -155,6 +204,64 @@ def test_resumed_suffix_is_bit_identical(inputs, models, streamed):
             np.testing.assert_array_equal(resumed[k], streamed[k])
     assert dict(stream_video_saliency(*models, inputs["video"], Config(**CFG),
                                       start_output=10_000)) == {}
+
+
+def test_decode_reads_two_batches_ahead_and_no_further(inputs, models):
+    """At each map the caller has taken every frame of the batches so far
+    (map m comes from the batch of frame m); the decode thread reads up to
+    DECODE_AHEAD_BATCHES batches of frames past them, the lag frame
+    included, and stops there."""
+    batch, n = 2, 24
+    cap = StubCapture(_frames(inputs["video"]), n)
+    ids = []
+    for fid, _ in _stub_stream(models, cap, batch):
+        taken = min(n - 1, (fid // batch + 1) * batch)
+        want = min(n, taken + DECODE_AHEAD_BATCHES * batch)
+        assert _settle(cap, want) == want, fid
+        ids.append(fid)
+    assert ids == list(range(4, n - 1)) and cap.releases == 1
+
+
+def test_decode_error_raises_after_the_batches_before_it(inputs, models, streamed):
+    """A read that raises at frame 10: the two whole batches before it
+    (frames 0-7, maps 4-7) are yielded as the stream yields them, frame 8's
+    unfinished batch is not, then the error; the capture is released once."""
+    cap = StubCapture(_frames(inputs["video"]), 12, fail_at=10)
+    got = []
+    with pytest.raises(RuntimeError, match="corrupt frame 10"):
+        for fid, sal in _stub_stream(models, cap, 4):
+            got.append((fid, sal))
+    assert [fid for fid, _ in got] == [4, 5, 6, 7]
+    for fid, sal in got:
+        np.testing.assert_array_equal(sal, streamed[fid])
+    assert cap.releases == 1
+
+
+def test_close_joins_the_decode_thread_then_releases_once(inputs, models):
+    before = threading.active_count()
+    cap = StubCapture(_frames(inputs["video"]), 40)
+    gen = _stub_stream(models, cap, 2)
+    assert next(gen)[0] == 4
+    assert any(t.name == "stream-decode" for t in threading.enumerate())
+    gen.close()
+    assert cap.releases == 1
+    assert threading.active_count() == before
+    assert not any(t.name == "stream-decode" for t in threading.enumerate())
+    reads = cap.reads
+    assert reads <= 6 + DECODE_AHEAD_BATCHES * 2  # frames 0-5 taken at map 4
+    time.sleep(0.05)
+    assert cap.reads == reads
+
+
+def test_resume_grabs_without_a_retrieve(inputs, models, streamed):
+    """start_output 9: frames 0-4 feed written windows only and are grabbed;
+    frame 5 seeds the lag and is read with every later one."""
+    cap = StubCapture(_frames(inputs["video"]), 12)
+    got = dict(_stub_stream(models, cap, 4, start_output=9))
+    assert cap.grabs == 5 and cap.retrieved == list(range(5, 12))
+    assert sorted(got) == [9, 10]
+    for k in got:
+        np.testing.assert_array_equal(got[k], streamed[k])
 
 
 @pytest.mark.parametrize("kw,exc,match", [

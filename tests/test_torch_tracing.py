@@ -37,7 +37,7 @@ STREAM_CFG = dict(equi_h=256, equi_w=128, cube_dim=64, flow_h=32, seq_len=5,
                   compute_dtype="float32", feat_dtype="float16", opt_flow=False,
                   host_cube_remap=True)
 FRAMES = 12
-CALLER_STREAM = ("stream.decode", "stream.remap_wait", "stream.stage", "stream.stage1",
+CALLER_STREAM = ("stream.decode_wait", "stream.remap_wait", "stream.stage", "stream.stage1",
                  "stream.stage2", "stream.fetch")
 CALLER_TRAIN = ("loader.wait", "train.h2d", "train.forward", "train.backward",
                 "train.optimizer")
@@ -224,11 +224,15 @@ def test_stream_records_every_span_where_it_runs(stream_inputs, start_output):
     maps, events = _profiled(lambda: _stream(stream_inputs, start_output=start_output))
     got = _by_name(profiling.spans())
     me = threading.get_native_id()
-    assert set(got) == set(CALLER_STREAM) | {"stream.remap"}
+    assert set(got) == set(CALLER_STREAM) | {"stream.decode", "stream.remap"}
     assert len(got["stream.decode"]) == FRAMES  # every frame read or skipped
+    decode_tids = {s.tid for s in got["stream.decode"]}  # the decode thread's, store only
+    assert len(decode_tids) == 1 and me not in decode_tids
+    assert not any(s.traced for s in got["stream.decode"])
     remap_tids = {s.tid for s in got["stream.remap"]}
     assert me not in remap_tids and len(remap_tids) <= REMAP_WORKERS
-    assert len(got["stream.remap"]) == FRAMES - 1 - max(0, start_output - 4)
+    fed = FRAMES - 1 - max(0, start_output - 4)  # the frames that reach a batch
+    assert len(got["stream.remap"]) == fed
     for name in CALLER_STREAM:
         assert all(s.tid == me and s.traced for s in got[name]), name
         traced = [e for e in events if e.get("name") == name]
@@ -238,7 +242,10 @@ def test_stream_records_every_span_where_it_runs(stream_inputs, start_output):
     assert len(got["stream.stage"]) == len(got["stream.stage1"]) == batches
     assert len(got["stream.stage2"]) == len(got["stream.fetch"]) >= 1
     assert maps and min(maps) >= start_output
-    assert profiling.counters() == {}
+    counters = profiling.counters()
+    assert set(counters) == {"stream.decode_taken", "stream.decode_ready"}
+    assert counters["stream.decode_taken"] == fed
+    assert 0 <= counters["stream.decode_ready"] <= fed
 
 
 def test_stream_maps_bit_identical_with_recording_on_and_off(stream_inputs):
