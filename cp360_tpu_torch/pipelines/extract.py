@@ -56,14 +56,22 @@ from cp360_tpu_torch.ops.quantize import dequantize_cam_np, quantize_cam
 from cp360_tpu_torch.ops.resample import cube_to_equi
 from cp360_tpu_torch.parallel.mesh import LocalReplicas, check_divisible
 from cp360_tpu_torch.utils.atomic import atomic_save
+from cp360_tpu_torch.utils.profiling import annotate, count
 
 
 def _cam_and_saliency(model: Backbone, cubes01: torch.Tensor):
-    """(f32 score cube [N, 6, h, w, K], saliency [N, 2h, 4w])."""
+    """(f32 score cube [N, 6, h, w, K], saliency [N, 2h, 4w]).
+
+    The one stage-1 step of the stream, extraction and serving.  While a
+    profiler runs it counts its frames (``stage1.frames``) and times the
+    backbone and its CAM on the device (the span ``stage1.backbone``, its
+    device time in the counter ``stage1.backbone.device_ms``)."""
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=cubes01.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=cubes01.device)
     cubes = (cubes01 - mean) / std
-    scores, _ = cam_forward(model, cubes)
+    count("stage1.frames", cubes01.shape[0])
+    with annotate("stage1.backbone", device=cubes01.device):
+        scores, _ = cam_forward(model, cubes)
     equi_scores = cube_to_equi(scores)  # [N, 2h, 4w, K]
     sal = torch.amax(equi_scores, dim=-1) ** 2
     return scores, sal

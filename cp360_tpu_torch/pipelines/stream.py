@@ -36,9 +36,14 @@ job on the pool, and on the calling thread ``stream.decode_wait`` for each
 wait for the decode thread's next frame, and for each batch
 ``stream.remap_wait`` (the wait for its remap jobs), ``stream.stage``
 (host staging and the upload), ``stream.stage1``, ``stream.stage2`` (the
-windows) and ``stream.fetch`` (the maps back to the host).  Counters:
-``stream.decode_taken``, the frames the caller took, and
-``stream.decode_ready``, those of them already decoded when it asked.
+windows) and ``stream.fetch`` (the maps back to the host); inside
+``stream.stage1``, ``stage1.backbone`` (``pipelines/extract.py::
+_cam_and_saliency``: the backbone and its CAM, timed on the device too).
+Counters: ``stream.decode_taken``, the frames the caller took, and
+``stream.decode_ready``, those of them already decoded when it asked;
+``stage1.frames``, the frames into the stage-1 step (a tail batch's pad
+frames included), and ``stage1.backbone.device_ms``, the device time
+between ``stage1.backbone``'s edges.
 """
 
 from __future__ import annotations

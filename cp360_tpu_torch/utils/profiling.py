@@ -17,6 +17,14 @@ the clock of the trace's CUDA kernels, and in the in-memory
 pools and workers that thread feeds, so a span on any other thread goes
 to the store alone.  A counter (:func:`count`) adds under the same gate.
 With nothing profiling, a span costs one check and records nothing.
+
+A span given a CUDA ``device`` (``annotate(name, device=...)``) also puts a
+pair of timing events on that device's current stream at its edges, and
+adds the device milliseconds between them to the counter
+``<name>.device_ms``.  A pair is resolved once its end event has
+completed: a later device span takes the completed pairs without waiting,
+and reading :func:`counters` waits for the rest.  Nothing on the timed
+path synchronizes.  On a CPU device the span records its host edges alone.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import time
 from typing import Dict, List, NamedTuple, Optional
 
 MAX_SPANS = 1 << 17  # the store's bound: later spans are dropped and counted
+MAX_PENDING = 1 << 12  # device-timed spans whose events have not been read yet
 
 
 class Span(NamedTuple):
@@ -43,14 +52,18 @@ class Span(NamedTuple):
 
 class SpanStore:
     """Spans and counters recorded while a profiler records.  Holds at most
-    ``max_spans`` spans (:data:`MAX_SPANS`, about 25 MB); ``dropped``
-    counts those that came after."""
+    ``max_spans`` spans (:data:`MAX_SPANS`, about 25 MB) and
+    ``max_pending`` unread event pairs of device-timed spans
+    (:data:`MAX_PENDING`); ``dropped`` counts the spans and pairs that came
+    after."""
 
-    def __init__(self, max_spans: int = MAX_SPANS):
+    def __init__(self, max_spans: int = MAX_SPANS, max_pending: int = MAX_PENDING):
         self.max_spans = max_spans
+        self.max_pending = max_pending
         self.dropped = 0
         self._spans: List[Span] = []
         self._counters: Dict[str, float] = {}
+        self._pending: List[tuple] = []  # (counter, start event, end event), in record order
         self._lock = threading.Lock()
 
     def add(self, span: Span) -> None:
@@ -64,18 +77,47 @@ class SpanStore:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + n
 
+    def add_events(self, counter: str, start, end) -> None:
+        """Keep a recorded pair of timing events until ``end`` completes,
+        then add ``start.elapsed_time(end)`` (ms) to ``counter``; the pairs
+        already completed are taken first, without waiting."""
+        with self._lock:
+            self._resolve(wait=False)
+            if len(self._pending) < self.max_pending:
+                self._pending.append((counter, start, end))
+            else:
+                self.dropped += 1
+
+    def _resolve(self, wait: bool) -> None:
+        """Add the pending pairs' times to their counters, in record order:
+        all of them (waiting for each end event), or those up to the first
+        whose end has not completed.  Called with the lock held."""
+        done = 0
+        for counter, start, end in self._pending:
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                break
+            self._counters[counter] = self._counters.get(counter, 0) + start.elapsed_time(end)
+            done += 1
+        del self._pending[:done]
+
     def spans(self) -> List[Span]:
         with self._lock:
             return list(self._spans)
 
     def counters(self) -> Dict[str, float]:
+        """The counters, each device-timed span's time included (this waits
+        for the device to finish the pending spans)."""
         with self._lock:
+            self._resolve(wait=True)
             return dict(self._counters)
 
     def clear(self) -> None:
         with self._lock:
             self._spans.clear()
             self._counters.clear()
+            self._pending.clear()
             self.dropped = 0
 
 
@@ -94,11 +136,12 @@ def _profiled() -> bool:
 
 
 class _Annotation:
-    __slots__ = ("name", "_fn", "_t0")
+    __slots__ = ("name", "device", "_fn", "_t0", "_ev0")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, device=None):
         self.name = name
-        self._fn = self._t0 = None
+        self.device = device
+        self._fn = self._t0 = self._ev0 = None
 
     def __enter__(self):
         if _recording():
@@ -107,6 +150,8 @@ class _Annotation:
 
                 self._fn = torch.profiler.record_function(self.name)
                 self._fn.__enter__()
+            if self.device is not None and self.device.type == "cuda":
+                self._ev0 = _timing_event(self.device)
             self._t0 = time.perf_counter_ns()
         return self
 
@@ -115,15 +160,31 @@ class _Annotation:
             t1 = time.perf_counter_ns()
             STORE.add(Span(self.name, threading.get_native_id(), self._t0, t1,
                            self._fn is not None))
+            if self._ev0 is not None:
+                STORE.add_events(f"{self.name}.device_ms", self._ev0,
+                                 _timing_event(self.device))
         if self._fn is not None:
             self._fn.__exit__(*exc)
         return False
 
 
-def annotate(name: str):
+def _timing_event(device):
+    """A timing event recorded now on ``device``'s current stream."""
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def annotate(name: str, *, device=None):
     """Named span: in the profiler's timeline on a profiled thread, and in
-    :data:`STORE` wherever it runs while a profiler runs."""
-    return _Annotation(name)
+    :data:`STORE` wherever it runs while a profiler runs.  With a CUDA
+    ``device`` (a ``torch.device``), the device time between the span's
+    edges on that device's current stream is added to the counter
+    ``<name>.device_ms``; it includes any stretch in which the device
+    waited for the host to launch the span's next kernel."""
+    return _Annotation(name, device)
 
 
 def count(name: str, n: float) -> None:

@@ -38,7 +38,7 @@ STREAM_CFG = dict(equi_h=256, equi_w=128, cube_dim=64, flow_h=32, seq_len=5,
                   host_cube_remap=True)
 FRAMES = 12
 CALLER_STREAM = ("stream.decode_wait", "stream.remap_wait", "stream.stage", "stream.stage1",
-                 "stream.stage2", "stream.fetch")
+                 "stage1.backbone", "stream.stage2", "stream.fetch")
 CALLER_TRAIN = ("loader.wait", "train.h2d", "train.forward", "train.backward",
                 "train.optimizer")
 TRAIN_KW = dict(input_size=8, hidden_size=8, flow_h=8, compute_dtype="float32", lr=1e-3)
@@ -239,12 +239,14 @@ def test_stream_records_every_span_where_it_runs(stream_inputs, start_output):
         assert len(traced) == len(got[name]) and \
             all(e["cat"] == "user_annotation" for e in traced), name
     batches = len(got["stream.remap_wait"])
-    assert len(got["stream.stage"]) == len(got["stream.stage1"]) == batches
+    assert len(got["stream.stage"]) == len(got["stream.stage1"]) == \
+        len(got["stage1.backbone"]) == batches
     assert len(got["stream.stage2"]) == len(got["stream.fetch"]) >= 1
     assert maps and min(maps) >= start_output
-    counters = profiling.counters()
-    assert set(counters) == {"stream.decode_taken", "stream.decode_ready"}
+    counters = profiling.counters()  # no stage1.backbone.device_ms: the CPU has no device time
+    assert set(counters) == {"stream.decode_taken", "stream.decode_ready", "stage1.frames"}
     assert counters["stream.decode_taken"] == fed
+    assert counters["stage1.frames"] == 4 * batches  # a tail batch is padded to 4
     assert 0 <= counters["stream.decode_ready"] <= fed
 
 
