@@ -11,7 +11,8 @@ for bit the JAX package's ``cube_pad_max_pool_3x3s2``.  The kernel scans
 each window in the plain version's order with its NaN-propagating compare,
 so the two agree bit for bit too.
 
-``launches`` counts the kernel's launches.
+``launches`` counts the kernel's launches; a replay of a CUDA graph that
+holds the kernel adds those its capture recorded (``models/cam.py``).
 """
 
 from __future__ import annotations

@@ -62,10 +62,13 @@ from cp360_tpu_torch.utils.profiling import annotate, count
 def _cam_and_saliency(model: Backbone, cubes01: torch.Tensor):
     """(f32 score cube [N, 6, h, w, K], saliency [N, 2h, 4w]).
 
-    The one stage-1 step of the stream, extraction and serving.  While a
-    profiler runs it counts its frames (``stage1.frames``) and times the
-    backbone and its CAM on the device (the span ``stage1.backbone``, its
-    device time in the counter ``stage1.backbone.device_ms``)."""
+    The one stage-1 step of the stream, extraction and serving.  On the
+    card the backbone and its CAM replay the model's CUDA graph for the
+    batch's shape (``models/cam.py::cam_forward``).  While a profiler runs
+    it counts its frames (``stage1.frames``; those a replay served also in
+    ``stage1.graph_frames``) and times the backbone and its CAM on the
+    device (the span ``stage1.backbone``, its device time in the counter
+    ``stage1.backbone.device_ms``)."""
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=cubes01.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=cubes01.device)
     cubes = (cubes01 - mean) / std

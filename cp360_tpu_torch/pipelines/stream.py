@@ -42,8 +42,10 @@ _cam_and_saliency``: the backbone and its CAM, timed on the device too).
 Counters: ``stream.decode_taken``, the frames the caller took, and
 ``stream.decode_ready``, those of them already decoded when it asked;
 ``stage1.frames``, the frames into the stage-1 step (a tail batch's pad
-frames included), and ``stage1.backbone.device_ms``, the device time
-between ``stage1.backbone``'s edges.
+frames included), ``stage1.graph_frames`` and ``stage1.graph_captures``
+(``models/cam.py::CamGraphs``: the frames a replay of the backbone's CUDA
+graph served, and the captures), and ``stage1.backbone.device_ms``, the
+device time between ``stage1.backbone``'s edges.
 """
 
 from __future__ import annotations
