@@ -2,22 +2,24 @@
 
     python -m cp360_tpu_torch.bench.stage1 [--device cuda] [--out FILE]
 
-Measures the extraction's stage-1 step end to end per frame, as
-``pipelines/extract.py::extract_frames`` runs it with the host remap
-(``host_cube_remap: true``): u8 960x1920 frames are cube-sampled to 224
-faces on 4 host threads (``host_faces_for_upload``), packed as 4:2:0
-planes (``BENCH_UPLOAD=yuv420``, default) or sent as u8 faces (``rgb8``),
-stacked into host staging memory and copied to the card as the extraction
-copies them (``extract._stage``: pinned on a card, ``non_blocking``), up to
-``BENCH_DEPTH`` (4) batches ahead of the step; the step is
-``stage1_batch_faces[_yuv]`` (resnet50 with seeded weights, bf16, cube
-padding, f16 CAMs) with the int8 transfer codec (``BENCH_CODEC=int8``,
-default, or ``none``); outputs stay on the card ``BENCH_FETCH_DEPTH`` (1)
-batches before they are copied back and, with int8, dequantized on the
-host to the f16 artifact, inside the timing.  Each iteration has a distinct
-batch of ``BENCH_BATCH`` (16) seeded frames; ``BENCH_WARMUP`` (2) batches
-warm up (the kernels' build, cuDNN's search), ``BENCH_BATCHES`` (8) are
-measured.
+Measures the extraction's stage-1 step end to end per frame, with
+``pipelines/extract.py::extract_frames``'s steps for the host remap
+(``host_cube_remap: true``) but a loop of its own: u8 960x1920 frames are
+cube-sampled to 224 faces on 4 host threads (``host_faces_for_upload``),
+packed as 4:2:0 planes (``BENCH_UPLOAD=yuv420``, default) or sent as u8
+faces (``rgb8``), stacked into host staging memory and copied to the card
+as the extraction copies them (``extract.stage_batch``: pinned on a card,
+``non_blocking``), up to ``BENCH_DEPTH`` (4) batches ahead of the step, on
+the calling thread (the extraction packs on a thread of its own); the step
+is ``extract.stage1_uploaded`` (``stage1_batch_faces[_yuv]``: resnet50
+with seeded weights, bf16, cube padding, f16 CAMs) with the int8 transfer
+codec (``BENCH_CODEC=int8``, default, or ``none``); outputs stay on the
+card ``BENCH_FETCH_DEPTH`` (1) batches before they are copied back and,
+with int8, dequantized on the host to the f16 artifact, inside the timing.
+It leaves out the video decode, the flow and the writes, and every batch
+is whole (no tail pad).  Each iteration has a distinct batch of
+``BENCH_BATCH`` (16) seeded frames; ``BENCH_WARMUP`` (2) batches warm up
+(the kernels' build, cuDNN's search), ``BENCH_BATCHES`` (8) are measured.
 
 The final line is ``bench.py``'s: ``value`` the median frames/s (host
 clock), ``spread`` and ``spread_iqr`` over the fetch-gated iterations,
@@ -60,21 +62,19 @@ def measure(model, frames: Sequence[np.ndarray], *, device: torch.device, n_warm
     [B, 2h, 4w] f32))."""
     pin = device.type == "cuda"
     batch = frames[0].shape[0]
-    step = extract.stage1_batch_faces_yuv if yuv else extract.stage1_batch_faces
     pool = ThreadPoolExecutor(max_workers=4)
 
     def remap(i):
         return [pool.submit(extract.host_faces_for_upload, f, cube_dim, yuv) for f in frames[i]]
 
     def upload(futs):
-        items = [f.result() for f in futs]
-        parts = list(zip(*items)) if yuv else [items]
-        hosts = [extract._stage(part, pin) for part in parts]
+        hosts = extract.stage_batch([f.result() for f in futs], batch, pin)
         return hosts, [h.to(device, non_blocking=True) for h in hosts]
 
     def run(staged):
         with torch.no_grad():
-            return step(model, *staged[1], out_dtype=torch.float16, codec=codec)
+            return extract.stage1_uploaded(model, *staged[1], out_dtype=torch.float16,
+                                           codec=codec)
 
     def fetch(out):
         host = [t.cpu().numpy() for t in out]
@@ -147,8 +147,8 @@ def measure_device(model, batch: int, device: torch.device, n_iters: int, codec:
 
     def call(i):
         with torch.no_grad():
-            extract.stage1_batch_faces_yuv(model, *planes[i % n_iters],
-                                           out_dtype=torch.float16, codec=codec)
+            extract.stage1_uploaded(model, *planes[i % n_iters], out_dtype=torch.float16,
+                                    codec=codec)
 
     ms = common.timed_ms(call, device, n_iters, warmup=1)
     return batch * n_iters / (sum(ms) * 1e-3)

@@ -2,16 +2,21 @@
 
     python -m cp360_tpu_torch.bench.stream [batch=8] [--device cuda] [--out FILE]
 
-Video frame -> temporal saliency as the compute core of
-``pipelines/stream.py`` runs it, on seeded decoded u8 960x1920 frames: 4
-host threads cube-sample them (``host_faces_for_upload``, 4:2:0 planes with
+Video frame -> temporal saliency on seeded decoded u8 960x1920 frames,
+with ``pipelines/stream.py``'s steps but a loop of its own: 4 host threads
+cube-sample the frames (``host_faces_for_upload``, 4:2:0 planes with
 ``STREAM_UPLOAD=yuv420``, default, or u8 faces with ``rgb8``), each batch
-goes through stage 1 (resnet50, bf16, f16 CAMs kept on the card), the last
-4 CAM frames carry over to the next batch, every complete window runs
-through the ConvLSTM 1000/1000 (bf16) and only the maps are copied back.
-Both window shapes are warmed before timing (6 batches are measured).
-``value`` is frames/s over the measured batches (host clock), ``spread``
-over their per-batch times.
+is packed and uploaded (``extract.stage_batch``: pinned on a card,
+``non_blocking``) and goes through stage 1 (``extract.stage1_uploaded``:
+resnet50, bf16, f16 CAMs kept on the card), the last 4 CAM frames carry
+over to the next batch, every complete window runs through the ConvLSTM
+1000/1000 (bf16) and only the maps are copied back.  Against
+``stream_video_saliency`` it leaves out the video decode and its thread
+(the frames are made in memory before timing, and every remap is submitted
+at once) and the tail pad (only whole batches run).  Both window shapes
+are warmed before timing (6 batches are measured).  ``value`` is frames/s
+over the measured batches (host clock), ``spread`` over their per-batch
+times.
 """
 
 from __future__ import annotations
@@ -40,17 +45,15 @@ def measure(model, cell, frames: Sequence[np.ndarray], batch: int, *, device: to
     pin = device.type == "cuda"
     pool = ThreadPoolExecutor(max_workers=4)
     futs = [pool.submit(extract.host_faces_for_upload, f, cube_dim, yuv) for f in frames]
-    step = extract.stage1_batch_faces_yuv if yuv else extract.stage1_batch_faces
     n_batches = len(frames) // batch
     carry, times = None, []
     try:
         t_prev = time.perf_counter()
         for it in range(n_batches):
             items = [f.result() for f in futs[it * batch:(it + 1) * batch]]
-            parts = list(zip(*items)) if yuv else [items]
-            xs = [extract._stage(p, pin).to(device, non_blocking=True) for p in parts]
+            xs = [h.to(device, non_blocking=True) for h in extract.stage_batch(items, batch, pin)]
             with torch.no_grad():
-                scores, _ = step(model, *xs, out_dtype=torch.float16)
+                scores, _ = extract.stage1_uploaded(model, *xs, out_dtype=torch.float16)
                 fd = scores if carry is None else torch.cat([carry, scores])
                 n_windows = fd.shape[0] - SEQ_LEN + 1
                 if n_windows > 0:

@@ -29,6 +29,12 @@ thread pool.
 as 4:2:0 planes, half the bytes, and :func:`stage1_batch_faces_yuv`
 rebuilds RGB on the device (``cp360_tpu/pipelines/extract.py:135-283``).
 
+This module owns stage 1's upload for every caller (the stream, the
+extraction, serving and the bench loops): :func:`check_upload_format`
+refuses an unknown ``upload_format``, :func:`stage_batch` pads a batch and
+packs it into host tensors, and :func:`stage1_uploaded` runs the step that
+those tensors' form takes.
+
 cv2 and PIL are imported only where they are used: the video decoder, the
 host remap of ``host_cube_remap: true`` (:func:`host_equi_to_cube_u8`), a
 frame resize, the images of ``output_img`` and the host flow backends.
@@ -40,8 +46,8 @@ import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from functools import lru_cache
-from typing import Iterable, Iterator, Optional, Union
+from functools import lru_cache, partial
+from typing import Iterable, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -252,13 +258,58 @@ def host_equi_to_cube_u8(frame_u8: np.ndarray, cube_dim: int) -> np.ndarray:
     return faces.reshape(6, cube_dim, cube_dim, 3)
 
 
+# ---- stage 1's upload: the format, the host packing, the step ---------------
+
+
+def check_upload_format(cfg: Config) -> None:
+    """Refuse an ``upload_format`` stage 1 does not know."""
+    if cfg.upload_format not in ("rgb8", "yuv420"):
+        raise ValueError(f"upload_format={cfg.upload_format!r} is not one of 'rgb8', 'yuv420'")
+
+
+def stage_batch(items: Sequence, batch: int, pin: bool) -> Tuple[torch.Tensor, ...]:
+    """Pack one stage-1 batch into host tensors, one per part of the upload.
+
+    An item is one frame's upload: a u8 array (the equirectangular frame,
+    or the faces :func:`host_faces_for_upload` samples), or a tuple of u8
+    planes (yuv420's (Y, UV), or serving's prepped parts).  The batch is
+    padded to ``batch`` with its last item, so every batch has one shape,
+    and each part is stacked straight into host memory, pinned when
+    ``pin``, one host copy per item.  A ``non_blocking`` copy reads the
+    tensors after this returns: the caller keeps them until it has run."""
+    items = list(items) + [items[-1]] * (batch - len(items))
+    parts = list(zip(*items)) if isinstance(items[0], tuple) else [items]
+    hosts = []
+    for part in parts:
+        host = torch.empty((batch, *part[0].shape), dtype=torch.uint8, pin_memory=pin)
+        np.stack(part, out=host.numpy())
+        hosts.append(host)
+    return tuple(hosts)
+
+
+def stage1_uploaded(model: Backbone, *xs: torch.Tensor, out_dtype: torch.dtype,
+                    codec: str = "none", cube_dim: int = 224):
+    """The stage-1 step for an upload as :func:`stage_batch` packs it (on
+    the device), chosen from its parts: two, the (Y, UV) planes, run
+    :func:`stage1_batch_faces_yuv`; one [N, 6, cd, cd, 3] faces
+    :func:`stage1_batch_faces`; one [N, H, 2H, 3] frame :func:`stage1_batch`,
+    which samples the faces at ``cube_dim`` and has no transfer codec."""
+    if len(xs) == 2:
+        return stage1_batch_faces_yuv(model, *xs, out_dtype=out_dtype, codec=codec)
+    (x,) = xs
+    if x.dim() == 5:
+        return stage1_batch_faces(model, x, out_dtype=out_dtype, codec=codec)
+    if codec != "none":
+        raise ValueError(f"codec={codec!r}: the equirectangular upload has no transfer codec")
+    return stage1_batch(model, x, cube_dim, out_dtype=out_dtype)
+
+
 # ---- the extraction loop ------------------------------------------------------
 
 
 def check_extract_config(cfg: Config, output_motion: bool) -> None:
     """Refuse values the extraction does not know."""
-    if cfg.upload_format not in ("rgb8", "yuv420"):
-        raise ValueError(f"upload_format={cfg.upload_format!r} is not one of 'rgb8', 'yuv420'")
+    check_upload_format(cfg)
     if cfg.transfer_codec not in ("none", "int8"):
         # 'auto' resolves through the JAX package's TPU link probe, which
         # the port does not carry
@@ -318,14 +369,6 @@ def _resize_frame(frame_bgr: np.ndarray, cfg: Config) -> np.ndarray:
 
 def _model_device(model: Backbone) -> torch.device:
     return next(iter(model.buffers())).device
-
-
-def _stage(arrays, pin: bool) -> torch.Tensor:
-    """Stack a list of u8 arrays straight into (pinned, on a card) host
-    staging memory, one host copy per array."""
-    host = torch.empty((len(arrays), *arrays[0].shape), dtype=torch.uint8, pin_memory=pin)
-    np.stack(arrays, out=host.numpy())
-    return host
 
 
 def extract_frames(model: Union[Backbone, LocalReplicas], cfg: Config,
@@ -391,13 +434,7 @@ def extract_frames(model: Union[Backbone, LocalReplicas], cfg: Config,
     flow_solver = (optical_flow.get_batch_solver_u8(cfg.flow_backend, cfg.flow_link_dtype,
                                                     device) if device_flow else None)
     written = 0
-
-    def stage1(m, *xs):
-        if yuv:
-            return stage1_batch_faces_yuv(m, *xs, out_dtype=out_dtype, codec=codec)
-        if cfg.host_cube_remap:
-            return stage1_batch_faces(m, xs[0], out_dtype=out_dtype, codec=codec)
-        return stage1_batch(m, xs[0], cfg.cube_dim, out_dtype=out_dtype)
+    stage1 = partial(stage1_uploaded, out_dtype=out_dtype, codec=codec, cube_dim=cfg.cube_dim)
 
     def assemble(batch, remap_futs):
         """Stack and pad one batch into host staging tensors (on the
@@ -406,9 +443,7 @@ def extract_frames(model: Union[Backbone, LocalReplicas], cfg: Config,
             items = [f.result() for f in remap_futs]
         else:
             items = [b[1] for b in batch]
-        items += [items[-1]] * (batch_frames - len(items))
-        parts = list(zip(*items)) if yuv else [items]  # yuv: (Y, UV) per frame
-        return tuple(_stage(part, pin) for part in parts)
+        return stage_batch(items, batch_frames, pin)
 
     def compute(batch, hosts):
         """Copy one assembled batch to the device and launch it; returns its

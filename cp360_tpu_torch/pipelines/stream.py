@@ -35,8 +35,9 @@ read or skipped (on the decode thread), ``stream.remap`` for each remap
 job on the pool, and on the calling thread ``stream.decode_wait`` for each
 wait for the decode thread's next frame, and for each batch
 ``stream.remap_wait`` (the wait for its remap jobs), ``stream.stage``
-(host staging and the upload), ``stream.stage1``, ``stream.stage2`` (the
-windows) and ``stream.fetch`` (the maps back to the host); inside
+(host staging and the upload: ``pipelines/extract.py::stage_batch``),
+``stream.stage1`` (``stage1_uploaded``), ``stream.stage2`` (the windows)
+and ``stream.fetch`` (the maps back to the host); inside
 ``stream.stage1``, ``stage1.backbone`` (``pipelines/extract.py::
 _cam_and_saliency``: the backbone and its CAM, timed on the device too).
 Counters: ``stream.decode_taken``, the frames the caller took, and
@@ -63,8 +64,8 @@ from cp360_tpu_torch.config import Config
 from cp360_tpu_torch.models.cam import Backbone
 from cp360_tpu_torch.models.clstm import ConvLSTM
 from cp360_tpu_torch.pipelines.extract import (
-    _model_device, _resize_frame, _stage, host_faces_for_upload, stage1_batch_faces,
-    stage1_batch_faces_yuv)
+    _model_device, _resize_frame, check_upload_format, host_faces_for_upload, stage1_uploaded,
+    stage_batch)
 from cp360_tpu_torch.parallel.pipeline import make_pipe_devices
 from cp360_tpu_torch.pipelines.temporal import (
     window_infer_from_frames, window_infer_from_frames_pipelined)
@@ -109,8 +110,7 @@ def stream_video_saliency(model: Backbone, cell: ConvLSTM, vid_path: str, cfg: C
             raise ValueError(f"pipeline_stages={cfg.pipeline_stages} must divide "
                              f"seq_len={cfg.seq_len} (each stage runs seq_len/stages steps)")
         pipe_devices = make_pipe_devices(cfg.pipeline_stages, _model_device(model))
-    if cfg.upload_format not in ("rgb8", "yuv420"):
-        raise ValueError(f"upload_format={cfg.upload_format!r} is not one of 'rgb8', 'yuv420'")
+    check_upload_format(cfg)
     cap = cv2.VideoCapture(vid_path)
     if not cap.isOpened():
         raise FileNotFoundError(
@@ -142,15 +142,12 @@ def _stream_frames(model: Backbone, cell: ConvLSTM, cfg: Config, stage1_batch: i
         # the tail batch is padded to stage1_batch with its last frame, so
         # every stage-1 batch has one shape; pad frames reach no returned window
         pad = stage1_batch - len(items)
-        items += [items[-1]] * pad
-        parts = list(zip(*items)) if yuv else [items]  # yuv: (Y, UV) per frame
         with annotate("stream.stage"):
-            hosts = [_stage(part, pin) for part in parts]
+            hosts = stage_batch(items, stage1_batch, pin)
             xs = [h.to(device, non_blocking=True) for h in hosts]
-        step = stage1_batch_faces_yuv if yuv else stage1_batch_faces
         with torch.no_grad():
             with annotate("stream.stage1"):
-                scores, _ = step(model, *xs, out_dtype=torch.float16)  # [B, 6, h, w, C]
+                scores, _ = stage1_uploaded(model, *xs, out_dtype=torch.float16)  # [B, 6, h, w, C]
             cnts = [c for c, _ in batch] + [batch[-1][0]] * pad
             frames = scores if carry is None else torch.cat([carry, scores])
             all_cnts = cnts if carry is None else carry_cnts + cnts

@@ -35,7 +35,10 @@ package's extraction does: ``false`` ships the u8 equirectangular frame and
 runs ``pipelines/extract.py::stage1_batch`` (the equi->cube kernel on the
 device); ``true`` samples the faces on the host with cv2 and runs
 ``stage1_batch_faces``, or with ``upload_format: yuv420`` packs them as
-4:2:0 planes (half the bytes) for ``stage1_batch_faces_yuv``.
+4:2:0 planes (half the bytes) for ``stage1_batch_faces_yuv``.  The batch
+is packed (``stage_batch``, pageable host memory) and its step chosen
+(``stage1_uploaded``) by ``pipelines/extract.py``, as the stream and the
+extraction do.
 
 With ``mesh_data`` N > 1 the model serves data-parallel from a
 ``parallel/mesh.py::LocalReplicas`` over the first N local cards: every
@@ -56,6 +59,7 @@ import json
 import threading
 import time
 import uuid
+from functools import partial
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -158,11 +162,10 @@ class SaliencyModel:
                  clstm_params: dict | None = None, device="cuda", devices=None):
         from cp360_tpu_torch.compat.jax_params import backbone_from_params, clstm_from_params
         from cp360_tpu_torch.parallel.mesh import LocalReplicas, local_devices
+        from cp360_tpu_torch.pipelines.extract import check_upload_format
         from cp360_tpu_torch.serving.batcher import DynamicBatcher
 
-        if cfg.upload_format not in ("rgb8", "yuv420"):
-            raise ValueError(f"upload_format={cfg.upload_format!r} is not one of "
-                             "'rgb8', 'yuv420'")
+        check_upload_format(cfg)
         self.device = resolve_device(device)
         if cfg.mesh_data > 1:
             devices = ([torch.device(d) for d in devices] if devices is not None
@@ -312,21 +315,13 @@ class SaliencyModel:
         copies the batch's saliency to the host once, and hands each caller
         (scores_i [6, h, w, K] f16 on the device, sal_i [2h, 4w] np.float32).
         """
-        from cp360_tpu_torch.pipelines.extract import (
-            stage1_batch, stage1_batch_faces, stage1_batch_faces_yuv)
+        from cp360_tpu_torch.pipelines.extract import stage1_uploaded, stage_batch
 
-        def step(model, *parts):
-            if self._yuv:
-                return stage1_batch_faces_yuv(model, *parts, out_dtype=torch.float16)
-            if self.cfg.host_cube_remap:
-                return stage1_batch_faces(model, parts[0], out_dtype=torch.float16)
-            return stage1_batch(model, parts[0], self.cfg.cube_dim, out_dtype=torch.float16)
-
+        step = partial(stage1_uploaded, out_dtype=torch.float16, cube_dim=self.cfg.cube_dim)
         n = len(preps)
         b = self._bucket(n, self._batcher.max_batch)
-        padded = list(preps) + [preps[-1]] * (b - n)
         with torch.no_grad():
-            parts = [torch.from_numpy(np.stack(p)).to(self.device) for p in zip(*padded)]
+            parts = [h.to(self.device) for h in stage_batch(preps, b, pin=False)]
             if self.replicas is not None:
                 scores, sal = self.replicas.run(step, split=parts)
             else:

@@ -1,6 +1,8 @@
 """PyTorch port, the yuv420 upload against the JAX package on the CPU: the
 host 4:2:0 packing, the device reconstruction, ``stage1_batch_faces_yuv``,
-extraction and serving with ``upload_format: yuv420``.
+extraction and serving with ``upload_format: yuv420``; and the upload's
+one owner (``stage_batch``, ``stage1_uploaded``) in each of its three forms
+against the direct steps.
 
 Sizes are cut for the CPU (64-pixel faces, a 16-class ResNet-50 CAM, f32).
 Inputs come from seeded numpy.  Tolerances: the host packing and the
@@ -191,3 +193,47 @@ def test_serving_yuv420_close_to_rgb8(resnet_tree):
                                                  jnp.asarray(uv[None]),
                                                  compute_dtype=jnp.float32)
     assert np.abs(b - np.asarray(jsal)[0]).max() <= 2e-4 * np.abs(np.asarray(jsal)).max()
+
+
+@pytest.fixture(scope="module")
+def resnet18():
+    tree = jax_params.init_resnet_params(4, "resnet18", num_classes=16)
+    return jax_params.backbone_from_params(tree, "resnet18", compute_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("form,codec", [("equi", "none"), ("faces", "int8"), ("yuv420", "none")])
+def test_stage_batch_and_stage1_uploaded_equal_the_direct_steps(resnet18, form, codec):
+    """stage_batch pads a short batch (3 of 4) with its last item and packs
+    each part as the hand-stacked arrays; stage1_uploaded on those tensors
+    runs the form's step, bit for bit the direct call on the same arrays."""
+    frames = [_natural_frame(64, 128, s) for s in (4, 5, 6)]
+    if form == "equi":
+        items = frames
+    else:
+        items = [extract.host_faces_for_upload(f, CD, form == "yuv420") for f in frames]
+    hosts = extract.stage_batch(items, 4, pin=False)
+    parts = [[p[k] for p in items] for k in range(2)] if form == "yuv420" else [items]
+    assert len(hosts) == len(parts)
+    for host, part in zip(hosts, parts):
+        assert host.dtype == torch.uint8 and host.shape[0] == 4
+        np.testing.assert_array_equal(host.numpy(), np.stack(part + [part[-1]]))
+    direct = [torch.from_numpy(np.stack(part + [part[-1]])) for part in parts]
+    with torch.no_grad():
+        got = extract.stage1_uploaded(resnet18, *hosts, out_dtype=torch.float32, codec=codec,
+                                      cube_dim=CD)
+        if form == "equi":
+            want = extract.stage1_batch(resnet18, *direct, CD, out_dtype=torch.float32)
+            with pytest.raises(ValueError, match="no transfer codec"):
+                extract.stage1_uploaded(resnet18, *hosts, out_dtype=torch.float32,
+                                        codec="int8", cube_dim=CD)
+        elif form == "faces":
+            want = extract.stage1_batch_faces(resnet18, *direct, out_dtype=torch.float32,
+                                              codec=codec)
+        else:
+            want = extract.stage1_batch_faces_yuv(resnet18, *direct, out_dtype=torch.float32,
+                                                  codec=codec)
+    assert len(got) == len(want) == (3 if codec == "int8" else 2)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    np.testing.assert_array_equal(got[-1][3].numpy(), got[-1][2].numpy())  # the pad row
