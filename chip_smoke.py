@@ -57,6 +57,14 @@ Phases, in order; any failure exits non-zero before the result lines:
      the plain version is not NaN, NaN where it is).  Its plain version,
      cube pad + ``F.max_pool2d``, is also the only PyTorch yardstick, so
      library ms is the plain version's time.
+   - ``conv_epilogue`` (each backbone conv's batch norm, bias, residual
+     and activation in one pass), with the vectors ``layers.fold`` gives
+     under random statistics: bf16 at the stream's batch of 8 on
+     VGG16-BN's first convs [48,224,224,64], ResNet-50's layer1 conv3
+     [48,56,56,256] (residual) and stem [48,112,112,64] (the shift
+     alone), and f32 with a conv bias, scale, shift, residual and ReLU6:
+     bit for bit against its plain version, timed against its bytes
+     bound; the plain version's time is the library yardstick.
 3. slice: ``SaliencyModel(device="cuda")`` at full width (ResNet-50,
    224 faces of 960x1920 frames, 1000-class CAM, ConvLSTM 1000/1000,
    seq_len 5, bf16, all-device stage 1, seeded random weights) serves
@@ -359,14 +367,15 @@ def counted_run(totals: dict, fn):
     """Run ``fn`` with every kernel's count set to 0 just before it and read
     just after (the one way the phases count a path); adds the counts to
     ``totals`` and returns (result, counts)."""
-    from cp360_tpu_torch.ops import cube_conv, cube_pool, equi_gather
+    from cp360_tpu_torch.ops import conv_epilogue, cube_conv, cube_pool, equi_gather
 
     cube_conv.launches = cube_conv.dx_launches = equi_gather.launches = 0
-    cube_pool.launches = 0
+    cube_pool.launches = conv_epilogue.launches = 0
     out = fn()
     torch.cuda.synchronize()
     got = {"cube_conv3x3": cube_conv.launches, "cube_conv3x3_dx": cube_conv.dx_launches,
-           "equi_to_cube": equi_gather.launches, "cube_pool3x3s2": cube_pool.launches}
+           "equi_to_cube": equi_gather.launches, "cube_pool3x3s2": cube_pool.launches,
+           "conv_epilogue": conv_epilogue.launches}
     for k, v in got.items():
         totals[k] = totals.get(k, 0) + v
     return out, got
@@ -719,6 +728,55 @@ def check_cube_pool(n: int, dtype: torch.dtype, gen, specials: bool = False) -> 
     return res
 
 
+def check_conv_epilogue(shape, dtype: torch.dtype, gen, act="relu", residual=False,
+                        conv_bias=False) -> dict:
+    """The conv epilogue (``ops/conv_epilogue.py``) bit for bit against its
+    plain version on the card, in place, with the vectors that
+    ``layers.fold`` hands it for a conv of ``dtype`` (with a bias where
+    ``conv_bias``) and a batch norm of random statistics: a bf16 conv's
+    shift alone, an f32 conv's shift, scale and conv bias; and its time
+    against the bytes bound: x (and the residual) read once, y written
+    once."""
+    from cp360_tpu_torch.bench.common import H100_F32_FLOPS, bound_ms
+    from cp360_tpu_torch.models import layers
+    from cp360_tpu_torch.ops import conv_epilogue as ce
+
+    c = shape[-1]
+    x = (4 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    res = (4 * torch.randn(shape, generator=gen, device="cuda")).to(dtype) if residual else None
+
+    def rand(lo, hi):
+        return lo + (hi - lo) * torch.rand(c, generator=gen, device="cuda")
+    bn = {"scale": rand(0.5, 2.0), "bias": rand(-1.0, 1.0), "mean": rand(-1.0, 1.0),
+          "var": rand(0.5, 2.0)}
+    conv = layers.Conv(torch.randn((c, 8, 1, 1), generator=gen, device="cuda").to(dtype),
+                       rand(-1.0, 1.0) if conv_bias else None)
+    _, _, shift, scale, pre = layers.fold(conv, layers.BatchNorm(bn), dtype)
+    with torch.no_grad():
+        want = ce.plain_epilogue(x, shift, scale, pre, res, act)
+        got = ce.conv_epilogue(x.clone(), shift, scale, pre, res, act)
+        torch.cuda.synchronize()
+        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        same_bits = torch.equal(got.view(ints), want.view(ints))
+        err = (got.float() - want.float()).abs().max().item()
+        work = x.clone()
+        ms = cuda_ms(lambda: ce.conv_epilogue(work, shift, scale, pre, res, act), iters=50)
+        plain_ms = cuda_ms(lambda: ce.plain_epilogue(x, shift, scale, pre, res, act), iters=20)
+    n_bytes = (x.numel() * (3 if residual else 2)) * x.element_size()
+    steps = sum(v is not None for v in (shift, scale, pre, res)) + (act is not None)
+    n_ops = float(x.numel()) * steps  # adds, a multiply, the compare
+    bms, by = bound_ms(n_bytes, n_ops, H100_F32_FLOPS)
+    given = [k for k, v in (("shift", shift), ("scale", scale), ("conv_bias", pre),
+                            ("residual", res)) if v is not None]
+    res_line = {"shape": f"{str(dtype).split('.')[-1]} {list(shape)} {act} " + "+".join(given),
+                "max_abs_err": err, "tol": 0.0, "bit_equal": bool(same_bits),
+                "passed": bool(same_bits), "ms": ms, "plain_ms": plain_ms,
+                "library_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "gbytes_per_s": n_bytes / (ms * 1e-3) / 1e9, "share_of_bound": bms / ms}
+    print(f"conv_epilogue {json.dumps(res_line)}", flush=True)
+    return res_line
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -748,14 +806,23 @@ def phase_kernels() -> dict:
           check_cube_pool(16, torch.bfloat16, gen),
           check_cube_pool(2, torch.float32, gen),
           check_cube_pool(8, torch.bfloat16, gen, specials=True)]
-    bad = [r["shape"] for r in k1 + k1dx + padded + k2 + k3 if not r["passed"]]
+    # each backbone conv's epilogue at the stream's batch of 8 (48 faces), as
+    # the bf16 trunk calls it (the shift alone): VGG16-BN's first convs,
+    # ResNet-50's layer1 conv3 (with its residual) and stem; and an f32
+    # conv with a bias, whose epilogue takes the conv bias, scale and shift
+    epi = [check_conv_epilogue((48, 224, 224, 64), torch.bfloat16, gen, conv_bias=True),
+           check_conv_epilogue((48, 56, 56, 256), torch.bfloat16, gen, residual=True),
+           check_conv_epilogue((48, 112, 112, 64), torch.bfloat16, gen),
+           check_conv_epilogue((2, 56, 56, 256), torch.float32, gen, "relu6", residual=True,
+                               conv_bias=True)]
+    bad = [r["shape"] for r in k1 + k1dx + padded + k2 + k3 + epi if not r["passed"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     # the JSON line reports the dominant main-path conv (2 of the 3 per
     # step), equi->cube at a serving bucket of 8 and the stem pool at an
     # extraction batch of 16
     return {"cube_conv3x3": k1[1], "cube_conv3x3_dx": k1dx[0], "equi_to_cube": k2[0],
-            "cube_pool3x3s2": k3[1]}
+            "cube_pool3x3s2": k3[1], "conv_epilogue": epi[0]}
 
 
 # ---- phase 3: the serving slice ----------------------------------------------
@@ -2390,6 +2457,7 @@ def phase_backbones() -> dict:
     from cp360_tpu_torch.cli import convert_weights, extract_features
     from cp360_tpu_torch.compat import jax_params
     from cp360_tpu_torch.config import Config
+    from cp360_tpu_torch.models import layers
     from cp360_tpu_torch.ops import equi_gather
     from cp360_tpu_torch.pipelines.extract import IMAGENET_MEAN, IMAGENET_STD, stage1_batch
     from cp360_tpu_torch.pipelines.stream import stream_video_saliency
@@ -2420,8 +2488,9 @@ def phase_backbones() -> dict:
             for dtype in (bf16, f32):
                 model = jax_params.backbone_from_params(tree, arch, True, dtype, "cuda")
                 (scores, sal), got = counted_run(counted, lambda: run_stage1(model, x8))
+                convs = sum(isinstance(m, layers.Conv) for m in model.modules())
                 if got != {"cube_conv3x3": 0, "cube_conv3x3_dx": 0, "equi_to_cube": 1,
-                           "cube_pool3x3s2": want_k3}:
+                           "cube_pool3x3s2": want_k3, "conv_epilogue": convs}:
                     fail(f"{arch} {dtype}: launches {got} for one stage-1 batch")
                 if tuple(scores.shape) != (8, 6, 7, 7, 1000) or tuple(sal.shape) != (8, 14, 28) \
                         or not bool(torch.isfinite(scores).all()):
@@ -3713,6 +3782,7 @@ def main(argv=None) -> None:
                          "cp360_tpu/ops/slot_gather.py:212"),
         "cube_pool3x3s2": ("cp360_tpu_torch/csrc/cube_pool3x3s2.cu",
                            "tools/bench_pool_pallas.py:39"),
+        "conv_epilogue": ("cp360_tpu_torch/csrc/conv_epilogue.cu", None),
     }
     line = []
     for name, (source, replaces) in meta.items():

@@ -8,8 +8,9 @@
 resnet50 forward (``models/resnet.py::ResNet.forward``; seeded weights,
 bf16) on ``n_iters`` distinct normalized cube batches of ``batch`` frames,
 cube-padded and zero-padded; prefix k minus prefix k-1 is stage k (the stem
-conv, batch norm + relu + the stem pool, layer1..layer4), ``cum_<stage>``
-the prefix itself.  ``pool`` (``stem_pool_forms_ms``): the stem's
+conv; its batch norm and relu, one epilogue pass, and the stem
+pool; layer1..layer4),
+``cum_<stage>`` the prefix itself.  ``pool`` (``stem_pool_forms_ms``): the stem's
 cube-padded 3x3/s2 max pool at [batch, 6, 112, 112, 64] bf16, as cube pad +
 ``F.max_pool2d`` (``unfused_ms``) and as the K3 kernel (``fused_rw_ms``),
 which must agree bit for bit.  Each time is the median CUDA-event ms of the
@@ -39,10 +40,10 @@ def upto(model, x: torch.Tensor, n_stages: int) -> torch.Tensor:
     forward on face-flattened [N*6, H, W, 3] input (as ``ResNet.forward``
     runs them)."""
     cd = model.compute_dtype
-    out = model.conv1(pad_faces(x.to(cd), 3, model.use_cube_pad), 2, cd)
+    xp = pad_faces(x.to(cd), 3, model.use_cube_pad)
     if n_stages == 0:
-        return out
-    out = torch.relu(model.bn1(out))
+        return model.conv1(xp, 2, cd)  # the stem conv alone
+    out = layers.conv_bn(xp, model.conv1, model.bn1, 2, cd, act="relu")
     if model.use_cube_pad:
         out = cp_ops.cube_pad_max_pool_3x3s2(out.reshape(-1, 6, *out.shape[1:]))
         out = out.reshape(-1, *out.shape[2:])

@@ -29,12 +29,15 @@ import torch
 from cp360_tpu_torch.models.mobilenet import MobileNetV2
 from cp360_tpu_torch.models.resnet import ResNet
 from cp360_tpu_torch.models.vgg import VGG16
-from cp360_tpu_torch.ops import cube_pool
+from cp360_tpu_torch.ops import conv_epilogue, cube_pool
 from cp360_tpu_torch.utils.profiling import count
 
 Backbone = Union[ResNet, VGG16, MobileNetV2]
 
 MAX_GRAPHS = 8  # captured input shapes a model keeps; the least recently used goes first
+# the kernels in a forward whose module-level ``launches`` a capture records
+# and each replay adds (the capture itself launches nothing)
+COUNTED = (cube_pool, conv_epilogue)
 
 
 def shift_weight_nonneg(fc_w: torch.Tensor) -> torch.Tensor:
@@ -185,11 +188,12 @@ class CamGraphs:
 class _Graph:
     """One captured forward: the graph, its static input and outputs, the
     event after the model's last replay on the device (shared by the
-    model's graphs there), and the stem pool launches (K3) it holds."""
+    model's graphs there), and the launches of each of :data:`COUNTED`'s
+    kernels it holds."""
 
-    def __init__(self, graph, static_in, outs, done, k3_launches: int):
+    def __init__(self, graph, static_in, outs, done, launches: tuple):
         self.graph, self.static_in, self.outs = graph, static_in, outs
-        self.done, self.k3_launches = done, k3_launches
+        self.done, self.launches = done, launches
 
     def replay(self, x):
         """Copy ``x`` in, replay, and return clones of the outputs on the
@@ -201,7 +205,8 @@ class _Graph:
             self.graph.replay()
             outs = tuple(t.clone() for t in self.outs)
             self.done.record(stream)
-        cube_pool.launches += self.k3_launches
+        for ops, n in zip(COUNTED, self.launches):
+            ops.launches += n
         return outs
 
 
@@ -225,11 +230,12 @@ def _capture(model, x, shared: dict):
         for t in outs:
             t.record_stream(caller)
         static_in = torch.empty(x.shape, dtype=x.dtype, device=dev)
-        before = cube_pool.launches
+        before = [ops.launches for ops in COUNTED]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=shared["pool"], stream=side,
                               capture_error_mode="thread_local"):
             static_outs = cam_forward_eager(model, static_in)
-        k3 = cube_pool.launches - before
-        cube_pool.launches -= k3  # the capture launched nothing
-    return _Graph(graph, static_in, static_outs, shared["done"], k3), outs
+        launches = tuple(ops.launches - b for ops, b in zip(COUNTED, before))
+        for ops, n in zip(COUNTED, launches):
+            ops.launches -= n  # the capture launched nothing
+    return _Graph(graph, static_in, static_outs, shared["done"], launches), outs

@@ -4,7 +4,10 @@ Thin wrappers over ``torch.nn.functional`` with the numerics of
 ``cp360_tpu/models/layers.py``: convolutions take a ``compute_dtype`` and
 return the input's dtype; inference batch norm runs in f32.  :class:`Conv`
 and :class:`BatchNorm` hold one layer's weights for the backbones
-(models/resnet.py, vgg.py, mobilenet.py).
+(models/resnet.py, vgg.py, mobilenet.py), which run each conv with the
+batch norm after it as :func:`conv_bn`: the batch norm folded into the
+conv's kernel and its epilogue (:func:`fold`), then one epilogue pass
+(``ops/conv_epilogue.py``) for the bias, the residual and the activation.
 
 Layout: an NHWC activation permuted to NCHW is a channels_last tensor, the
 layout cuDNN convolves without a copy; the backbones keep their kernels as
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cp360_tpu_torch.ops import cube_pad as cp_ops
+from cp360_tpu_torch.ops.conv_epilogue import conv_epilogue
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -94,9 +98,17 @@ def batch_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
 
     p: {'scale', 'bias', 'mean', 'var'} each [C].
     """
-    inv = torch.rsqrt(p["var"].float() + eps) * p["scale"].float()
-    shift = p["bias"].float() - p["mean"].float() * inv
+    inv, shift = bn_affine(p, eps)
     return (x.float() * inv + shift).to(x.dtype)
+
+
+def bn_affine(p, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An inference batch norm as the f32 per-channel (scale, shift) that
+    :func:`batch_norm` applies as ``x * scale + shift``: ``scale / sqrt(var
+    + eps)`` and ``bias - mean * that``.  p: {'scale', 'bias', 'mean',
+    'var'} each [C]."""
+    inv = torch.rsqrt(p["var"].float() + eps) * p["scale"].float()
+    return inv, p["bias"].float() - p["mean"].float() * inv
 
 
 def max_pool(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
@@ -122,13 +134,62 @@ def fold_batch_norm_into_conv(conv_w, bn: dict, eps: float = 1e-5):
     ``conv2d(x, w', b') == batch_norm(conv2d(x, w), bn)``
     (``cp360_tpu/models/layers.py:126``), computed in f64 and returned as
     tensors in the kernel's dtype.  For offline checkpoint preparation; the
-    backbones keep the explicit batch norm."""
+    backbones fold in their forward instead, from the buffers as they are
+    at each call (:func:`fold`)."""
     f64 = {k: torch.as_tensor(np.asarray(v), dtype=torch.float64) for k, v in bn.items()}
     w = torch.as_tensor(np.asarray(conv_w))
     g = f64["scale"] / torch.sqrt(f64["var"] + eps)
     wf = w.to(torch.float64) * g
     bf = f64["bias"] - f64["mean"] * g
     return wf.to(w.dtype), bf.to(w.dtype)
+
+
+def fold(conv: "Conv", bn: Optional["BatchNorm"], compute_dtype: Optional[torch.dtype] = None):
+    """The inference batch norm after ``conv`` split between the conv's
+    kernel and its epilogue (``ops/conv_epilogue.py``), from the modules'
+    tensors as they are at this call (a weight or statistic changed in
+    place shows at the next call, and inside a captured CUDA graph at the
+    next replay).  With (g, shift) = :func:`bn_affine`:
+
+    - a conv that computes below f32 (bf16): ``w' = w * g`` in f32, rounded
+      once to the kernel's dtype, and the epilogue adds ``shift + g * conv
+      bias``.  The kernel's own rounding absorbs g: for statistics at
+      identity (g = 1/sqrt(1 + eps), or a power of two times it) ``w'``
+      is w (times that power), and the trunk's results are those of the
+      explicit chain bit for bit, where a g applied after the bf16 conv
+      would push exact sums just below their rounding ties and bias every
+      residual add the same way;
+    - an f32 conv keeps w, and the epilogue computes ``(x + conv bias) *
+      g + shift``: the explicit chain's f32 operations in its order.
+
+    Returns (w OIHW in the kernel's layout, the factor folded into w or
+    None, and the epilogue's shift, scale and conv bias, each [C] or None).
+    """
+    if bn is None:
+        return conv.w, None, conv.b, None, None
+    g, shift = bn_affine(dict(bn.named_buffers()))
+    if (compute_dtype or conv.w.dtype) == torch.float32:
+        return conv.w, None, shift, g, conv.b
+    if conv.b is not None:
+        shift = shift + g * conv.b.float()
+    return (conv.w * g.view(-1, 1, 1, 1)).to(conv.w.dtype), g, shift, None, None
+
+
+def conv_bn(x: torch.Tensor, conv: "Conv", bn: Optional["BatchNorm"], stride=1,
+            compute_dtype: Optional[torch.dtype] = None, padding: Padding = "VALID",
+            groups: int = 1, act: Optional[str] = None,
+            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``act(batch_norm(conv(x) + conv bias) + residual)`` (``bn`` None:
+    ``act(conv(x) + conv bias + residual)``) as the conv with the kernel of
+    :func:`fold` and one epilogue pass (``ops/conv_epilogue.py``) for the
+    rest, in f32, rounded once to the input's dtype: the kernel on a CUDA
+    input, writing over the conv's output unless autograd records it, the
+    same operations in PyTorch ops on a CPU input.  act None, "relu" or
+    "relu6"."""
+    w, _, shift, scale, conv_bias = fold(conv, bn, compute_dtype)
+    out = conv2d(x, w.permute(2, 3, 1, 0), stride=stride, padding=padding,
+                 compute_dtype=compute_dtype, groups=groups)
+    return conv_epilogue(out, shift, scale, conv_bias, residual, act)
 
 
 def pad_faces(x: torch.Tensor, p: int, use_cube_pad: bool = True) -> torch.Tensor:
@@ -159,13 +220,12 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over f32 running statistics."""
+    """An inference batch norm's f32 running statistics, held as buffers
+    under the state dict's names; the backbones fold them into the conv
+    before (:func:`fold`), and :func:`batch_norm` applies them as an op of
+    their own."""
 
     def __init__(self, p: dict):
         super().__init__()
         for k in ("scale", "bias", "mean", "var"):
             self.register_buffer(k, p[k])
-
-    def forward(self, x):
-        return batch_norm(x, {"scale": self.scale, "bias": self.bias,
-                              "mean": self.mean, "var": self.var})

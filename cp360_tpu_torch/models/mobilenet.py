@@ -31,19 +31,20 @@ STRIDES = tuple((t, s if i == 0 else 1) for t, c, n, s in V2_CFG for i in range(
 
 
 class ConvBN(nn.Module):
-    """Conv -> BN -> optional ReLU6; a 3x3 is cube-padded (or zero-padded)
-    and run VALID."""
+    """Conv -> BN -> optional residual add -> optional ReLU6; a 3x3 is
+    cube-padded (or zero-padded) and run VALID; all but the conv is one
+    epilogue pass (``models/layers.py::conv_bn``)."""
 
     def __init__(self, w_oihw: torch.Tensor, bn: dict):
         super().__init__()
         self.conv = Conv(w_oihw)
         self.bn = BatchNorm(bn)
 
-    def forward(self, x, cd, use_cube_pad, stride=1, groups=1, act=True):
+    def forward(self, x, cd, use_cube_pad, stride=1, groups=1, act=True, residual=None):
         if self.conv.w.shape[-1] == 3:
             x = pad_faces(x, 1, use_cube_pad)
-        out = self.bn(self.conv(x, stride, cd, groups=groups))
-        return torch.clamp(out, 0.0, 6.0) if act else out
+        return layers.conv_bn(x, self.conv, self.bn, stride, cd, groups=groups,
+                              act="relu6" if act else None, residual=residual)
 
 
 class MobileNetV2(nn.Module):
@@ -79,9 +80,9 @@ class MobileNetV2(nn.Module):
             if t != 1:
                 out = blk["expand"](out, cd, cp)
             out = blk["dw"](out, cd, cp, stride=stride, groups=out.shape[-1])
-            out = blk["project"](out, cd, cp, act=False)
-            if stride == 1 and inp.shape[-1] == out.shape[-1]:
-                out = inp + out  # torchvision's use_res_connect
+            # torchvision's use_res_connect, added in the projection's epilogue
+            res = inp if stride == 1 and inp.shape[-1] == blk["project"].conv.w.shape[0] else None
+            out = blk["project"](out, cd, cp, act=False, residual=res)
         feats = self.head(out, cd, cp)
         if not with_logits:
             return None, feats

@@ -17,6 +17,11 @@ The Bottleneck cube conv runs in one of the two forms of
 the JAX package does, to ``CP360_CUBE_CONV_FORM`` where it is set, else to
 ``pad`` under f32 compute and to ``halo`` under bf16.
 
+Every conv runs as ``models/layers.py::conv_bn``: the batch norm after it
+folded into the conv (``layers.fold``), then one epilogue pass
+(``ops/conv_epilogue.py``) for the bias, the block's residual (into the
+last conv of a block) and the ReLU.
+
 Weights come from ``compat/jax_params.py::resnet_from_params``: conv kernels
 in the compute dtype, held as OIHW channels_last storage (the layout cuDNN
 reads without a copy) and handed to ``layers.conv2d`` as HWIO views; batch
@@ -34,6 +39,7 @@ from torch import nn
 from cp360_tpu_torch.models import layers
 from cp360_tpu_torch.models.layers import BatchNorm, Conv, pad_faces
 from cp360_tpu_torch.ops import cube_pad as cp_ops
+from cp360_tpu_torch.ops.conv_epilogue import conv_epilogue
 
 ARCHS = {
     # name: (block kind, stage depths)
@@ -76,27 +82,40 @@ class Block(nn.Module):
                              if halo else None)
 
     def _cube_conv(self, x, cd):
+        """The bottleneck's cube-padded conv2 -> bn2 -> ReLU: the conv with
+        the folded kernel (and the halo strips' kernel, scaled by the same
+        factors), strips and interior summed, then one epilogue pass."""
+        w, g, shift, scale, _ = layers.fold(self.convs["conv2"], self.bns["bn2"], cd)
+        w = w.permute(2, 3, 1, 0)
         if self.w_halo is not None and x.shape[1] == x.shape[2]:
-            out = cp_ops.cube_pad_conv3x3(x.reshape(-1, 6, *x.shape[1:]),
-                                          self.convs["conv2"].hwio, self.stride, cd, "halo",
-                                          self.w_halo)
-            return out.reshape(-1, *out.shape[2:])
-        return self.convs["conv2"](pad_faces(x, 1, self.use_cube_pad), self.stride, cd)
+            w_halo = self.w_halo
+            if g is not None:
+                strips = w_halo.shape[-1] // g.numel()
+                w_halo = (w_halo * g.repeat(strips)).to(w_halo.dtype)
+            out = cp_ops.cube_pad_conv3x3(x.reshape(-1, 6, *x.shape[1:]), w, self.stride, cd,
+                                          "halo", w_halo)
+            out = out.reshape(-1, *out.shape[2:])
+        else:
+            out = layers.conv2d(pad_faces(x, 1, self.use_cube_pad), w, stride=self.stride,
+                                compute_dtype=cd)
+        return conv_epilogue(out, shift, scale, act="relu")
 
     def forward(self, x, cd):
+        """The block's last conv takes the residual (the downsample conv's
+        output, no activation of its own, or the input) into its epilogue."""
+        convs, bns = self.convs, self.bns
         if self.kind == "bottleneck":
-            out = torch.relu(self.bns["bn1"](self.convs["conv1"](x, 1, cd)))
-            out = torch.relu(self.bns["bn2"](self._cube_conv(out, cd)))
-            out = self.bns["bn3"](self.convs["conv3"](out, 1, cd))
+            out = layers.conv_bn(x, convs["conv1"], bns["bn1"], 1, cd, act="relu")
+            out = self._cube_conv(out, cd)
+            conv, bn, pad = convs["conv3"], bns["bn3"], "VALID"
         else:  # BasicBlock: zero padding=1, whatever use_cube_pad says
-            out = self.convs["conv1"](x, self.stride, cd, padding=((1, 1), (1, 1)))
-            out = torch.relu(self.bns["bn1"](out))
-            out = self.bns["bn2"](self.convs["conv2"](out, 1, cd, padding=((1, 1), (1, 1))))
-        if "downsample" in self.convs:
-            res = self.bns["downsample"](self.convs["downsample"](x, self.stride, cd))
-        else:
-            res = x
-        return torch.relu(out + res)
+            pad = ((1, 1), (1, 1))
+            out = layers.conv_bn(x, convs["conv1"], bns["bn1"], self.stride, cd, pad, act="relu")
+            conv, bn = convs["conv2"], bns["bn2"]
+        res = x
+        if "downsample" in convs:
+            res = layers.conv_bn(x, convs["downsample"], bns["downsample"], self.stride, cd)
+        return layers.conv_bn(out, conv, bn, 1, cd, pad, act="relu", residual=res)
 
 
 class ResNet(nn.Module):
@@ -145,7 +164,8 @@ class ResNet(nn.Module):
         # cast once at trunk entry: with bf16 compute every activation
         # (pads, BN, relu, residual adds) stays bf16, as in the JAX package
         x = x.to(cd)
-        out = torch.relu(self.bn1(self.conv1(pad_faces(x, 3, self.use_cube_pad), 2, cd)))
+        out = layers.conv_bn(pad_faces(x, 3, self.use_cube_pad), self.conv1, self.bn1, 2, cd,
+                             act="relu")
         if self.use_cube_pad and out.shape[1] == out.shape[2] and out.shape[1] % 2 == 0:
             out = cp_ops.cube_pad_max_pool_3x3s2(out.reshape(-1, 6, *out.shape[1:]))
             out = out.reshape(-1, *out.shape[2:])

@@ -10,6 +10,9 @@ linear 1024 -> K through a global average pool.  The CAM weight
 ``cam_w`` is the classifier's [1024, K].  There is no stem pool here, so
 K3 is not on this path.
 
+Each conv runs as ``models/layers.py::conv_bn``: the batch norm folded
+into the conv, then one epilogue pass for the bias and the ReLU.
+
 Weights come from ``compat/jax_params.py::vgg16_from_params``.
 """
 
@@ -56,10 +59,11 @@ class VGG16(nn.Module):
             if v == "M":
                 out = layers.max_pool(out, 2, 2)
                 continue
-            out = self.convs[ci](pad_faces(out, 1, self.use_cube_pad), 1, cd)
-            out = torch.relu(self.bns[ci](out))
+            out = layers.conv_bn(pad_faces(out, 1, self.use_cube_pad), self.convs[ci],
+                                 self.bns[ci], 1, cd, act="relu")
             ci += 1
-        feats = torch.relu(self.camconv(pad_faces(out, 1, self.use_cube_pad), 1, cd))
+        feats = layers.conv_bn(pad_faces(out, 1, self.use_cube_pad), self.camconv, None, 1, cd,
+                               act="relu")
         if not with_logits:
             return None, feats
         pooled = feats.mean(dim=(1, 2))

@@ -3,15 +3,16 @@
 
 On the CPU: which inputs a graph serves (CUDA, autograd off, no capture
 under way), that CPU inputs run eagerly and capture nothing, the stage-1
-counters, and the cache's bookkeeping with a stand-in for the capture (one
-entry per shape, dtype and device; the bound, least recently used out; a
-copy of the model starting empty; a reassigned weight dropping every
-graph; one replay at a time under many threads).
+counters, and the cache's bookkeeping with a stand-in for the capture
+(one entry per shape, dtype and device; the bound, least recently used
+out; a copy of the model starting empty; a reassigned weight dropping
+every graph; one replay at a time under many threads).
 
 On the card (``cuda`` marker, skipped without one): each backbone family's
 replay bit for bit against the eager forward at batches 8 and 1, results
-held across the next call, weights changed in place, two threads on one
-model, the stem pool's launch count and the profiler's view of a replay.
+held across the next call, weights and batch-norm statistics changed in
+place, two threads on one model, the stem pool's launch count and the
+profiler's view of a replay with the conv epilogue in it.
 This file imports neither JAX nor the JAX package, so on a machine with the
 card alone:
 
@@ -30,8 +31,8 @@ import torch
 from torch import nn
 
 from cp360_tpu_torch.compat import jax_params
-from cp360_tpu_torch.models import cam
-from cp360_tpu_torch.ops import cube_pool
+from cp360_tpu_torch.models import cam, layers
+from cp360_tpu_torch.ops import conv_epilogue, cube_pool
 from cp360_tpu_torch.pipelines.extract import stage1_batch_faces
 from cp360_tpu_torch.utils import profiling
 
@@ -330,11 +331,18 @@ def test_cuda_weights_changed_in_place_change_the_next_replay(cuda):
         model.fc_w.mul_(-1.0)
         after = cam.cam_forward(model, x)
         want = cam.cam_forward_eager(model, x)
+        # a batch norm's statistics deep in the trunk, read in its conv's epilogue
+        model.stages[3][2].bns["bn3"].var.mul_(4.0)
+        model.stages[2][0].bns["downsample"].mean.add_(0.5)
+        later = cam.cam_forward(model, x)
+        want_later = cam.cam_forward_eager(model, x)
     torch.cuda.synchronize()
     assert len(cam.graphs_of(model)) == 1
     assert not torch.equal(before[0], after[0])
-    for g, w in zip(after, want):
-        assert _bits_equal(g, w)
+    assert not torch.equal(after[1], later[1])
+    for got, wants in ((after, want), (later, want_later)):
+        for g, w in zip(got, wants):
+            assert _bits_equal(g, w)
 
 
 @pytest.mark.cuda
@@ -366,19 +374,26 @@ def test_cuda_two_threads_on_one_model_get_their_own_answers(cuda):
 
 @pytest.mark.cuda
 def test_cuda_a_replay_counts_the_stem_pools_launches(cuda):
+    """And the conv epilogue's, one a conv: a capture counts its eager run
+    alone, each replay what the capture recorded."""
     model = _model("resnet50", torch.bfloat16, "halo")
+    convs = sum(isinstance(m, layers.Conv) for m in model.modules())
     x = _cubes(4, 6)
     with torch.no_grad():
-        before = cube_pool.launches
+        before, epi = cube_pool.launches, conv_epilogue.launches
         cam.cam_forward(model, x)  # the capture's eager run: one launch
         assert cube_pool.launches == before + 1
+        assert conv_epilogue.launches == epi + convs
         for k in range(3):
             cam.cam_forward(model, x)
             assert cube_pool.launches == before + 2 + k
+            assert conv_epilogue.launches == epi + (2 + k) * convs
         vgg = _model("vgg16", torch.bfloat16)
         cam.cam_forward(vgg, x)
         cam.cam_forward(vgg, x)  # VGG16-BN has no stem pool
     assert cube_pool.launches == before + 4
+    vgg_convs = sum(isinstance(m, layers.Conv) for m in vgg.modules())  # 13 and camconv
+    assert conv_epilogue.launches == epi + 4 * convs + 2 * vgg_convs
 
 
 @pytest.mark.cuda
@@ -403,6 +418,7 @@ def test_cuda_a_capture_and_a_replay_under_the_profiler(cuda):
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     names = {e.name for e in kernels}
     assert any("cube_pool3x3s2" in n for n in names), sorted(names)[:20]
+    assert any("epilogue" in n for n in names), sorted(names)[:20]
     assert len(kernels) > 2 * 100  # the eager run's and the replay's several hundred each
     assert counters["stage1.graph_captures"] == 1 and counters["stage1.graph_frames"] == 3
     assert counters["stage1.backbone.device_ms"] > 0
