@@ -64,7 +64,21 @@ Phases, in order; any failure exits non-zero before the result lines:
      [48,56,56,256] (residual) and stem [48,112,112,64] (the shift
      alone), and f32 with a conv bias, scale, shift, residual and ReLU6:
      bit for bit against its plain version, timed against its bytes
-     bound; the plain version's time is the library yardstick.
+     bound; the plain version's time is the library yardstick.  GELU
+     (ConvNeXt's W1, bf16 [48,56,56,512] with its conv bias) within one
+     bf16 ulp: erff against the plain version's erf.  ConvNeXt's W2
+     (bf16 [48,56,56,128] onto an f32 residual, with its conv bias and
+     gamma), bit for bit.
+   - ``cube_dwconv`` (ConvNeXt's cube-padded depthwise 7x7 with its bias)
+     at every ConvNeXt-B shape of a batch of 8 (48 faces of 56/128,
+     28/256, 14/512, 7/1024) from f32 faces to bf16 (the main path: the
+     residual stream is f32), and at 14/512 in bf16 and in f32, against its
+     plain version (pad, f32 grouped conv, bias, one rounding) within one
+     ulp of the output dtype; timed against its bound (the f32 rate of the
+     CUDA cores and the bytes: x read once, y written once, the kernel and
+     bias once), the plain version and the library form, never called by
+     the port: the cube pad's copy and cuDNN's grouped conv in the
+     working dtype.
 3. slice: ``SaliencyModel(device="cuda")`` at full width (ResNet-50,
    224 faces of 960x1920 frames, 1000-class CAM, ConvLSTM 1000/1000,
    seq_len 5, bf16, all-device stage 1, seeded random weights) serves
@@ -173,10 +187,12 @@ Phases, in order; any failure exits non-zero before the result lines:
 7. backbones: every stage-1 backbone family at its full published width
    (seeded weights, 1000 classes, 8 seeded natural-texture 960x1920
    frames, 224 faces, ``host_cube_remap: false``).
-   - resnet18, resnet34, resnet101, resnet152, vgg16 and mobilenet_v2
+   - resnet18, resnet34, resnet101, resnet152, vgg16, mobilenet_v2 and
+     the port's own convnext_base (ConvNeXt-B)
      through ``stage1_batch`` on the 8 frames in bf16 and f32: one K2
-     launch a batch, one K3 for the ResNets and none for vgg16 and
-     mobilenet_v2 (no stem pool), CAMs [8,6,7,7,1000]; card f32 against
+     launch a batch, one K3 for the ResNets and none for the others (no
+     stem pool), 36 ``cube_dwconv`` launches for convnext_base and none
+     for the others, one conv epilogue a conv, CAMs [8,6,7,7,1000]; card f32 against
      the port's f32 on the CPU on the first frame within 2e-4 of max|CAM|
      (TF32 off), card bf16 against card f32 within 0.02 of max|CAM| (the
      video phase's limit); stage-1 ms at 8 frames in bf16 (CUDA events,
@@ -367,15 +383,15 @@ def counted_run(totals: dict, fn):
     """Run ``fn`` with every kernel's count set to 0 just before it and read
     just after (the one way the phases count a path); adds the counts to
     ``totals`` and returns (result, counts)."""
-    from cp360_tpu_torch.ops import conv_epilogue, cube_conv, cube_pool, equi_gather
+    from cp360_tpu_torch.ops import conv_epilogue, cube_conv, cube_dwconv, cube_pool, equi_gather
 
     cube_conv.launches = cube_conv.dx_launches = equi_gather.launches = 0
-    cube_pool.launches = conv_epilogue.launches = 0
+    cube_pool.launches = conv_epilogue.launches = cube_dwconv.launches = 0
     out = fn()
     torch.cuda.synchronize()
     got = {"cube_conv3x3": cube_conv.launches, "cube_conv3x3_dx": cube_conv.dx_launches,
            "equi_to_cube": equi_gather.launches, "cube_pool3x3s2": cube_pool.launches,
-           "conv_epilogue": conv_epilogue.launches}
+           "conv_epilogue": conv_epilogue.launches, "cube_dwconv": cube_dwconv.launches}
     for k, v in got.items():
         totals[k] = totals.get(k, 0) + v
     return out, got
@@ -729,21 +745,22 @@ def check_cube_pool(n: int, dtype: torch.dtype, gen, specials: bool = False) -> 
 
 
 def check_conv_epilogue(shape, dtype: torch.dtype, gen, act="relu", residual=False,
-                        conv_bias=False) -> dict:
+                        conv_bias=False, res_dtype=None) -> dict:
     """The conv epilogue (``ops/conv_epilogue.py``) bit for bit against its
     plain version on the card, in place, with the vectors that
     ``layers.fold`` hands it for a conv of ``dtype`` (with a bias where
     ``conv_bias``) and a batch norm of random statistics: a bf16 conv's
     shift alone, an f32 conv's shift, scale and conv bias; and its time
     against the bytes bound: x (and the residual) read once, y written
-    once."""
+    once.  ``res_dtype`` f32 to a bf16 x: ConvNeXt's form, an f32 y."""
     from cp360_tpu_torch.bench.common import H100_F32_FLOPS, bound_ms
     from cp360_tpu_torch.models import layers
     from cp360_tpu_torch.ops import conv_epilogue as ce
 
     c = shape[-1]
     x = (4 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
-    res = (4 * torch.randn(shape, generator=gen, device="cuda")).to(dtype) if residual else None
+    res = (4 * torch.randn(shape, generator=gen, device="cuda")).to(res_dtype or dtype) \
+        if residual else None
 
     def rand(lo, hi):
         return lo + (hi - lo) * torch.rand(c, generator=gen, device="cuda")
@@ -756,25 +773,83 @@ def check_conv_epilogue(shape, dtype: torch.dtype, gen, act="relu", residual=Fal
         want = ce.plain_epilogue(x, shift, scale, pre, res, act)
         got = ce.conv_epilogue(x.clone(), shift, scale, pre, res, act)
         torch.cuda.synchronize()
-        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
         same_bits = torch.equal(got.view(ints), want.view(ints))
         err = (got.float() - want.float()).abs().max().item()
+        # GELU: erff against erf, so within one ulp of the storage dtype
+        tol = 0.0 if act != "gelu" else (2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20)
+        passed = bool(same_bits) or (act == "gelu" and torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=1e-6))
         work = x.clone()
-        ms = cuda_ms(lambda: ce.conv_epilogue(work, shift, scale, pre, res, act), iters=50)
+        into = None if res is None or res.dtype == x.dtype else res.clone()
+        ms = cuda_ms(lambda: ce.conv_epilogue(work, shift, scale, pre, res, act, out=into),
+                     iters=50)
         plain_ms = cuda_ms(lambda: ce.plain_epilogue(x, shift, scale, pre, res, act), iters=20)
-    n_bytes = (x.numel() * (3 if residual else 2)) * x.element_size()
+    n_bytes = x.numel() * (x.element_size() + got.element_size()) + \
+        (0 if res is None else res.numel() * res.element_size())
     steps = sum(v is not None for v in (shift, scale, pre, res)) + (act is not None)
     n_ops = float(x.numel()) * steps  # adds, a multiply, the compare
     bms, by = bound_ms(n_bytes, n_ops, H100_F32_FLOPS)
     given = [k for k, v in (("shift", shift), ("scale", scale), ("conv_bias", pre),
                             ("residual", res)) if v is not None]
-    res_line = {"shape": f"{str(dtype).split('.')[-1]} {list(shape)} {act} " + "+".join(given),
-                "max_abs_err": err, "tol": 0.0, "bit_equal": bool(same_bits),
-                "passed": bool(same_bits), "ms": ms, "plain_ms": plain_ms,
+    kind = str(dtype).split('.')[-1] + ("" if got.dtype == dtype else "->f32")
+    res_line = {"shape": f"{kind} {list(shape)} {act} " + "+".join(given),
+                "max_abs_err": err, "tol": tol, "bit_equal": bool(same_bits),
+                "passed": passed, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                 "gbytes_per_s": n_bytes / (ms * 1e-3) / 1e9, "share_of_bound": bms / ms}
     print(f"conv_epilogue {json.dumps(res_line)}", flush=True)
     return res_line
+
+
+def check_cube_dwconv(s: int, c: int, dtype: torch.dtype, gen, faces: int = 48,
+                      out_dtype=None) -> dict:
+    """The cube-padded depthwise 7x7 (``ops/cube_dwconv.py``) from
+    ``dtype`` faces to ``out_dtype`` (``dtype`` by default) against its
+    plain version on the card, within one ulp of the output dtype (both
+    sum in f32 and round once after the bias; only their order differs),
+    and its time against its bound, the plain version's and the library
+    form's (the cube pad's copy and cuDNN's grouped conv in the faces'
+    dtype, never called by the port)."""
+    import torch.nn.functional as F
+
+    from cp360_tpu_torch.bench.common import H100_F32_FLOPS, bound_ms
+    from cp360_tpu_torch.models import layers
+    from cp360_tpu_torch.ops import cube_dwconv as dw
+
+    x = torch.randn((faces, s, s, c), generator=gen, device="cuda").to(dtype)
+    w = (0.1 * torch.randn((7, 7, c), generator=gen, device="cuda")).to(dtype).permute(2, 0, 1)
+    b = torch.randn(c, generator=gen, device="cuda")
+    out_dtype = out_dtype or dtype
+    with torch.no_grad():
+        got = dw.cube_dwconv(x, w, b, out_dtype=out_dtype)
+        want = dw.plain_cube_dwconv(x, w, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        rtol = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+        atol = 1e-4 * float(want.float().abs().max())
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+        bias = b.to(dtype)
+
+        def library():
+            xp = layers.pad_faces(x, 3).permute(0, 3, 1, 2)
+            return F.conv2d(xp, w[:, None], bias, groups=c)
+
+        ms = cuda_ms(lambda: dw.cube_dwconv(x, w, b, out_dtype=out_dtype), iters=50)
+        plain_ms = cuda_ms(lambda: dw.plain_cube_dwconv(x, w, b, out_dtype=out_dtype), iters=10)
+        library_ms = cuda_ms(library, iters=20)
+    item = x.element_size()
+    n_bytes = x.numel() * (item + got.element_size()) + 49 * c * item + 4 * c
+    n_ops = 2.0 * 49 * x.numel()
+    bms, by = bound_ms(n_bytes, n_ops, H100_F32_FLOPS)
+    kind = str(dtype).split('.')[-1] + ("" if out_dtype == dtype else "->bf16")
+    res = {"shape": f"{kind} [{faces},{s},{s},{c}] 7x7",
+           "max_abs_err": err, "rtol": rtol, "atol": atol, "passed": bool(ok),
+           "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+           "gbytes_per_s": n_bytes / (ms * 1e-3) / 1e9, "share_of_bound": bms / ms}
+    print(f"cube_dwconv {json.dumps(res)}", flush=True)
+    return res
 
 
 def phase_kernels() -> dict:
@@ -814,15 +889,27 @@ def phase_kernels() -> dict:
            check_conv_epilogue((48, 56, 56, 256), torch.bfloat16, gen, residual=True),
            check_conv_epilogue((48, 112, 112, 64), torch.bfloat16, gen),
            check_conv_epilogue((2, 56, 56, 256), torch.float32, gen, "relu6", residual=True,
-                               conv_bias=True)]
-    bad = [r["shape"] for r in k1 + k1dx + padded + k2 + k3 + epi if not r["passed"]]
+                               conv_bias=True),
+           check_conv_epilogue((48, 56, 56, 512), torch.bfloat16, gen, "gelu", conv_bias=True),
+           check_conv_epilogue((48, 56, 56, 128), torch.bfloat16, gen, None, residual=True,
+                               conv_bias=True, res_dtype=torch.float32)]
+    # ConvNeXt-B's depthwise convs at the stream's batch of 8 (48 faces), from
+    # the f32 residual stream to bf16 as the main path runs them
+    f32 = torch.float32
+    dwc = [check_cube_dwconv(56, 128, f32, gen, out_dtype=torch.bfloat16),
+           check_cube_dwconv(28, 256, f32, gen, out_dtype=torch.bfloat16),
+           check_cube_dwconv(14, 512, f32, gen, out_dtype=torch.bfloat16),
+           check_cube_dwconv(7, 1024, f32, gen, out_dtype=torch.bfloat16),
+           check_cube_dwconv(14, 512, torch.bfloat16, gen),
+           check_cube_dwconv(14, 512, f32, gen)]
+    bad = [r["shape"] for r in k1 + k1dx + padded + k2 + k3 + epi + dwc if not r["passed"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     # the JSON line reports the dominant main-path conv (2 of the 3 per
     # step), equi->cube at a serving bucket of 8 and the stem pool at an
     # extraction batch of 16
     return {"cube_conv3x3": k1[1], "cube_conv3x3_dx": k1dx[0], "equi_to_cube": k2[0],
-            "cube_pool3x3s2": k3[1], "conv_epilogue": epi[0]}
+            "cube_pool3x3s2": k3[1], "conv_epilogue": epi[0], "cube_dwconv": dwc[2]}
 
 
 # ---- phase 3: the serving slice ----------------------------------------------
@@ -2416,7 +2503,8 @@ def phase_stream() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-BACKBONE_ARCHS = ("resnet18", "resnet34", "resnet101", "resnet152", "vgg16", "mobilenet_v2")
+BACKBONE_ARCHS = ("resnet18", "resnet34", "resnet101", "resnet152", "vgg16", "mobilenet_v2",
+                  "convnext_base")
 BACKBONE_CPU_TOL = 2e-4  # card f32 vs the CPU's f32 CAMs, of max|ref|
 BACKBONE_BF16_TOL = 0.02  # card bf16 vs card f32 CAMs, of max (the video phase's limit)
 HALO_F32_TOL = 1e-3  # halo vs pad features, f32, atol and rtol (tests/test_cube_pad.py:204-221)
@@ -2484,13 +2572,15 @@ def phase_backbones() -> dict:
             t0 = time.monotonic()
             tree = jax_params.init_backbone_params(SEED, arch)
             want_k3 = 1 if arch.startswith("resnet") else 0
+            want_dw = 36 if arch == "convnext_base" else 0
             out = {}
             for dtype in (bf16, f32):
                 model = jax_params.backbone_from_params(tree, arch, True, dtype, "cuda")
                 (scores, sal), got = counted_run(counted, lambda: run_stage1(model, x8))
                 convs = sum(isinstance(m, layers.Conv) for m in model.modules())
                 if got != {"cube_conv3x3": 0, "cube_conv3x3_dx": 0, "equi_to_cube": 1,
-                           "cube_pool3x3s2": want_k3, "conv_epilogue": convs}:
+                           "cube_pool3x3s2": want_k3, "conv_epilogue": convs,
+                           "cube_dwconv": want_dw}:
                     fail(f"{arch} {dtype}: launches {got} for one stage-1 batch")
                 if tuple(scores.shape) != (8, 6, 7, 7, 1000) or tuple(sal.shape) != (8, 14, 28) \
                         or not bool(torch.isfinite(scores).all()):
@@ -3783,6 +3873,7 @@ def main(argv=None) -> None:
         "cube_pool3x3s2": ("cp360_tpu_torch/csrc/cube_pool3x3s2.cu",
                            "tools/bench_pool_pallas.py:39"),
         "conv_epilogue": ("cp360_tpu_torch/csrc/conv_epilogue.cu", None),
+        "cube_dwconv": ("cp360_tpu_torch/csrc/cube_dwconv.cu", None),
     }
     line = []
     for name, (source, replaces) in meta.items():

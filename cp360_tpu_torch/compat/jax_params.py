@@ -42,6 +42,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from cp360_tpu_torch.compat.convnext_params import convnext_from_params, init_convnext_params
+from cp360_tpu_torch.models import convnext
 from cp360_tpu_torch.models.clstm import ConvLSTM
 from cp360_tpu_torch.models.mobilenet import LAST, V2_CFG, MobileNetV2
 from cp360_tpu_torch.models.resnet import ARCHS, EXPANSION, ResNet
@@ -317,7 +319,10 @@ def init_mobilenet_v2_params(seed: int, num_classes: int = 1000) -> dict:
 
 
 def init_backbone_params(seed: int, arch: str, num_classes: int = 1000) -> dict:
-    """The seeded param tree of any backbone family in :data:`BACKBONES`."""
+    """The seeded param tree of any backbone family in :data:`BACKBONES`,
+    or of the port's own ConvNeXt (``compat/convnext_params.py``)."""
+    if arch in convnext.ARCHS:
+        return init_convnext_params(seed, arch, num_classes)
     if arch == "vgg16":
         return init_vgg16_params(seed, num_classes)
     if arch == "mobilenet_v2":
@@ -415,8 +420,11 @@ def backbone_from_params(params: dict, arch: str = "resnet50", use_cube_pad: boo
                          compute_dtype: torch.dtype = torch.bfloat16, device="cpu",
                          cube_conv_form=None):
     """A param tree -> the stage-1 backbone of family ``arch`` (one of
-    :data:`BACKBONES`) on ``device``: the one constructor every entry point
+    :data:`BACKBONES`, or a ConvNeXt of ``models.convnext.ARCHS``, the
+    port's own family) on ``device``: the one constructor every entry point
     uses.  ``cube_conv_form`` is the ResNets' option."""
+    if arch in convnext.ARCHS:
+        return convnext_from_params(params, use_cube_pad, compute_dtype, device)
     if arch == "vgg16":
         return vgg16_from_params(params, use_cube_pad, compute_dtype, device)
     if arch == "mobilenet_v2":

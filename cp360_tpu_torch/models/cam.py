@@ -7,8 +7,9 @@ its feature map and the score cube is one f32 matmul on the device.
 
 Every backbone family takes this one path, as the JAX package's
 ``_backbone_cam`` dispatch does (``cp360_tpu/pipelines/extract.py:84-101``):
-a ``Backbone`` is any of ``models.resnet.ResNet``, ``models.vgg.VGG16`` and
-``models.mobilenet.MobileNetV2``, whose ``forward(x, with_logits=False)``
+a ``Backbone`` is any of ``models.resnet.ResNet``, ``models.vgg.VGG16``,
+``models.mobilenet.MobileNetV2`` and ``models.convnext.ConvNeXt`` (a family
+the JAX package does not have), whose ``forward(x, with_logits=False)``
 returns the CAM feature map and whose ``cam_w`` is its classifier weight.
 
 On a CUDA input with autograd off, :func:`cam_forward` replays a CUDA graph
@@ -26,18 +27,19 @@ from typing import Union
 
 import torch
 
+from cp360_tpu_torch.models.convnext import ConvNeXt
 from cp360_tpu_torch.models.mobilenet import MobileNetV2
 from cp360_tpu_torch.models.resnet import ResNet
 from cp360_tpu_torch.models.vgg import VGG16
-from cp360_tpu_torch.ops import conv_epilogue, cube_pool
+from cp360_tpu_torch.ops import conv_epilogue, cube_dwconv, cube_pool
 from cp360_tpu_torch.utils.profiling import count
 
-Backbone = Union[ResNet, VGG16, MobileNetV2]
+Backbone = Union[ResNet, VGG16, MobileNetV2, ConvNeXt]
 
 MAX_GRAPHS = 8  # captured input shapes a model keeps; the least recently used goes first
 # the kernels in a forward whose module-level ``launches`` a capture records
 # and each replay adds (the capture itself launches nothing)
-COUNTED = (cube_pool, conv_epilogue)
+COUNTED = (cube_pool, conv_epilogue, cube_dwconv)
 
 
 def shift_weight_nonneg(fc_w: torch.Tensor) -> torch.Tensor:
@@ -212,7 +214,7 @@ class _Graph:
 
 def _capture(model, x, shared: dict):
     """Run the eager forward on a side stream (it fills the cube pad's
-    index tables, lets cuDNN pick its plans and builds K3; its outputs
+    index tables, lets cuDNN pick its plans and builds the kernels; its outputs
     answer this call), then capture it on the same stream into the pool
     the model's graphs on ``x``'s device share.  Host work inside the
     captured region would break it: the forward's index tables are made by

@@ -30,7 +30,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cp360_tpu_torch"
-SOURCES = ("cube_conv3x3", "equi_to_cube", "cube_pool3x3s2", "conv_epilogue")  # CUDA kernels
+SOURCES = ("cube_conv3x3", "equi_to_cube", "cube_pool3x3s2", "conv_epilogue",
+           "cube_dwconv")  # CUDA kernels
 HOST_SOURCES = ("npy_loader",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

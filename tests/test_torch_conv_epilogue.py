@@ -9,13 +9,14 @@ place showing in the next call; the bf16 trunk at identity statistics bit
 for bit; where ``fold`` puts the scale, and its bf16 kernel and the halo
 strips' kernel against the offline fold (``fold_batch_norm_into_conv``,
 ``halo_kernel``) under random statistics; the epilogue's plain version,
-its checks and its gradient, and the gradient of a recorded card call; no
-batch norm op left in the trunk.
+its checks and its gradient, its bf16 x onto an f32 residual, and the
+gradient of a recorded card call; no batch norm op left in the trunk.
 
 On the card (``cuda`` marker, skipped without one): the kernel bit for bit
 against its plain version in bf16 and f32 (scale and shift, a conv bias, a
 residual; ReLU, ReLU6 and none; 64 and 1024 channels; in place and out of
-place), an odd channel count and a misaligned tensor refused, gradients
+place; and a bf16 x onto an f32 residual), an odd channel count and a
+misaligned tensor refused, gradients
 through the kernel equal to the plain version's, and each family's bf16
 trunk against the plain explicit batch-norm trunk within 1e-2 of its
 largest feature.  This file imports neither JAX nor the JAX package, so on a
@@ -333,12 +334,28 @@ def test_the_plain_epilogue_runs_each_step_in_f32_and_rounds_once(act, dtype):
     assert torch.equal(ce.conv_epilogue(x, shift), (x.float() + shift).to(dtype))
 
 
+def test_the_plain_epilogue_adds_bf16_to_an_f32_residual_and_keeps_f32():
+    """ConvNeXt's W2: the bf16 branch onto the f32 residual stream, the
+    result rounded to f32 alone, into a new tensor or over the residual."""
+    gen = torch.Generator().manual_seed(6)
+    x = (4 * torch.randn(2, 3, 5, 8, generator=gen)).bfloat16()
+    res = 4 * torch.randn(2, 3, 5, 8, generator=gen)
+    pre, scale = torch.randn(8, generator=gen), torch.rand(8, generator=gen)
+    want = (x.float() + pre) * scale + res
+    got = ce.conv_epilogue(x, None, scale, pre, res)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert ce.conv_epilogue(x, None, scale, pre, res, out=res) is res
+    assert torch.equal(res, want)
+    with pytest.raises(ValueError, match="residual"):
+        ce.conv_epilogue(x.float(), residual=res.bfloat16())
+
+
 def test_the_epilogue_checks_its_arguments_and_passes_gradients():
     x = torch.randn(2, 4, 4, 6, requires_grad=True)
     shift = torch.randn(6, requires_grad=True)
     scale = torch.rand(6) + 0.5
     with pytest.raises(ValueError, match="unknown activation"):
-        ce.conv_epilogue(x, shift, act="gelu")
+        ce.conv_epilogue(x, shift, act="silu")
     with pytest.raises(ValueError, match="scale of shape"):
         ce.conv_epilogue(x, shift, scale[:5])
     with pytest.raises(ValueError, match="residual"):
@@ -392,6 +409,56 @@ def test_cuda_kernel_equals_the_plain_epilogue_bit_for_bit(cuda, dtype, act, res
     if not inplace:
         assert _bits_equal(x, kept)
     assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("into", ["new", "residual"])
+@pytest.mark.parametrize("c", [64, 1024])
+@pytest.mark.parametrize("act", [None, "relu"])
+def test_cuda_f32_residual_form_equals_the_plain_epilogue_bit_for_bit(cuda, act, c, into):
+    """A bf16 x onto an f32 residual (ConvNeXt's W2 and its residual
+    stream): an f32 result, bit for bit the plain version's, into a new
+    tensor or over the residual; x is left as it was."""
+    gen = torch.Generator(device="cuda").manual_seed(c + 1)
+    x = (4 * torch.randn((3, 9, 11, c), generator=gen, device="cuda")).bfloat16()
+    res = 4 * torch.randn((3, 9, 11, c), generator=gen, device="cuda")
+    pre, scale = (torch.randn(c, generator=gen, device="cuda") for _ in range(2))
+    with torch.no_grad():
+        want = ce.plain_epilogue(x, None, scale, pre, res, act)
+        kept = x.clone()
+        before = ce.launches
+        got = ce.conv_epilogue(x, None, scale, pre, res, act,
+                               out=res if into == "residual" else None)
+    torch.cuda.synchronize()
+    assert ce.launches == before + 1 and got.dtype == torch.float32
+    assert (got.data_ptr() == res.data_ptr()) is (into == "residual")
+    assert _bits_equal(x, kept) and _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True], ids=["bias", "bias_residual"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_gelu_is_the_plain_epilogue_within_one_ulp(cuda, dtype, residual):
+    """GELU is the kernel's one activation that is not bit for bit: its
+    erff (within 2 ulp) and the plain version's erf may differ in the last
+    bits of the f32 value, so the stored values agree within one ulp of
+    the storage dtype in bf16 (2^-7 of the value), and within 2^-20 of it
+    in f32 (a few ulps); the rest of the pass is exact either way."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x = (4 * torch.randn((3, 9, 11, 512), generator=gen, device="cuda")).to(dtype)
+    res = (4 * torch.randn((3, 9, 11, 512), generator=gen, device="cuda")).to(dtype) \
+        if residual else None
+    pre, scale = torch.randn(512, generator=gen, device="cuda"), None
+    if residual:
+        scale = torch.rand(512, generator=gen, device="cuda") + 0.1
+    with torch.no_grad():
+        want = ce.plain_epilogue(x, None, scale, pre, res, "gelu")
+        before = ce.launches
+        got = ce.conv_epilogue(x, None, scale, pre, res, "gelu")
+    torch.cuda.synchronize()
+    assert ce.launches == before + 1
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -284,14 +284,15 @@ def _bits_equal(a, b):
 
 
 BACKBONES = [("resnet50", torch.bfloat16, "halo"), ("resnet50", torch.float32, "pad"),
-             ("vgg16", torch.bfloat16, None), ("mobilenet_v2", torch.bfloat16, None)]
+             ("vgg16", torch.bfloat16, None), ("mobilenet_v2", torch.bfloat16, None),
+             ("convnext_base", torch.bfloat16, None)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [8, 1])
 @pytest.mark.parametrize("arch,dtype,form", BACKBONES,
                          ids=["resnet50-halo-bf16", "resnet50-pad-f32", "vgg16-bf16",
-                              "mobilenet_v2-bf16"])
+                              "mobilenet_v2-bf16", "convnext_base-bf16"])
 def test_cuda_replay_equals_eager_bit_for_bit(cuda, arch, dtype, form, n):
     model = _model(arch, dtype, form)
     x, y = _cubes(n, 1), _cubes(n, 2)
