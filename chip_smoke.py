@@ -1463,7 +1463,7 @@ def int8_loss_gap(params: dict) -> dict:
     seq, flows = int8_gap_window()
 
     class One:  # the loader's codec on this one batch
-        def get_batch(self, idxs, n_threads=0):
+        def get_batch(self, idxs, n_threads=0, empty=None):
             return seq, flows
 
     q_seq, q_flows = PrefetchLoader(One(), 1, transfer_codec="int8").load_batch([0])

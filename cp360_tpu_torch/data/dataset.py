@@ -16,6 +16,12 @@ f32 scales and the flows as f16.  ``rows`` reads only one rank's span of
 every global batch (``parallel/mesh.py::local_rows_slice``).  With
 ``require_motion=False`` a window needs only its CAM files, and its flows
 are empty planes [..., 0, 0, 2] f32.
+
+On a machine with a card, :class:`PrefetchLoader` reads each batch into
+page-locked host memory (:func:`pinned_empty`) that PyTorch's caching host
+allocator hands back batch after batch, so a read neither allocates nor
+first-touches its pages, and ``train/loop.py::batch_to_device`` copies the
+batch to the card without blocking.
 """
 
 from __future__ import annotations
@@ -27,9 +33,19 @@ import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from cp360_tpu_torch import native
 from cp360_tpu_torch.utils.profiling import annotate
+
+
+def pinned_empty(shape, dtype) -> np.ndarray:
+    """An uninitialised numpy array in page-locked host memory: a view of a
+    ``torch.empty(..., pin_memory=True)`` tensor, which keeps it alive.  The
+    tensor's block comes from PyTorch's caching host allocator and goes back
+    to it when the last view is dropped, ready for the next batch."""
+    like = torch.from_numpy(np.empty(0, dtype)).dtype
+    return torch.empty(tuple(shape), dtype=like, pin_memory=True).numpy()
 
 
 def read_split(path: str) -> List[str]:
@@ -77,14 +93,20 @@ class WindowDataset:
         seq, flow = self.read_runs([(vid, start)], self.seq_len)
         return seq[0], flow[0], vid, start
 
-    def read_runs(self, runs: Sequence[Tuple[str, int]], n_frames: int, n_threads: int = 0):
+    def read_runs(self, runs: Sequence[Tuple[str, int]], n_frames: int, n_threads: int = 0,
+                  *, empty=np.empty):
         """(seq [R, n_frames, 6, h, w, C], flows [R, n_frames, H, W, 2]) for
         runs of ``n_frames`` consecutive frames starting at each (vid, first
         frame index), read by the batch loader on ``n_threads`` threads (0:
         one per hardware thread), each kind in the shape and dtype of its
         first file.  A missing file raises before any is read.  Without
         ``require_motion`` no flow file is read, and the flows are empty
-        planes [R, n_frames, 0, 0, 2] f32."""
+        planes [R, n_frames, 0, 0, 2] f32.
+
+        ``empty(shape, dtype)`` gives each array the read fills (numpy's
+        by default; :func:`pinned_empty` for page-locked memory): the flows,
+        the CAMs as the files hold them, and the NHWC batch that torch's
+        threaded copy permutes them into."""
         kinds = (("cube_feat", self.feat_root, "CAM"),)
         if self.require_motion:
             kinds += (("motion", self.motion_root, "flow"),)
@@ -95,19 +117,27 @@ class WindowDataset:
             for p in paths[sub]:
                 if not os.path.exists(p):
                     raise FileNotFoundError(f"missing {kind} frame {p}")
-        cams, *flows = (native.load_npy_batch(paths[sub], *native.npy_header(paths[sub][0]),
-                                              n_threads)
-                        for sub, _, _ in kinds)
-        cams = cams.reshape(len(runs), n_frames, *cams.shape[1:])
-        # reference layout [6, C, h, w] -> NHWC; the artifact dtype is kept
-        seq = np.ascontiguousarray(cams.transpose(0, 1, 2, 4, 5, 3))
-        if not flows:
-            return seq, np.zeros((len(runs), n_frames, 0, 0, 2), np.float32)
-        return seq, flows[0].reshape(len(runs), n_frames, *flows[0].shape[1:])
 
-    def get_batch(self, idxs, n_threads: int = 0):
-        """(seq [B,T,6,h,w,C], flows [B,T,H,W,2]) for the given windows."""
-        return self.read_runs([self.windows[int(i)] for i in idxs], self.seq_len, n_threads)
+        def read(sub):
+            shape, dtype = native.npy_header(paths[sub][0])
+            out = empty((len(paths[sub]), *shape), dtype)
+            native.load_npy_batch(paths[sub], shape, dtype, n_threads, out=out)
+            return out.reshape(len(runs), n_frames, *shape)
+
+        cams = read("cube_feat")
+        # reference layout [6, C, h, w] -> NHWC; the artifact dtype is kept
+        nhwc = torch.from_numpy(cams).permute(0, 1, 2, 4, 5, 3)
+        seq = empty(tuple(nhwc.shape), cams.dtype)
+        torch.from_numpy(seq).copy_(nhwc)
+        if not self.require_motion:
+            return seq, np.zeros((len(runs), n_frames, 0, 0, 2), np.float32)
+        return seq, read("motion")
+
+    def get_batch(self, idxs, n_threads: int = 0, *, empty=np.empty):
+        """(seq [B,T,6,h,w,C], flows [B,T,H,W,2]) for the given windows,
+        each array from ``empty`` (:meth:`read_runs`)."""
+        return self.read_runs([self.windows[int(i)] for i in idxs], self.seq_len, n_threads,
+                              empty=empty)
 
 
 class SegmentWindowDataset:
@@ -147,11 +177,11 @@ class SegmentWindowDataset:
     def n_windows(self) -> int:
         return len(self.segments) * self.group
 
-    def get_batch(self, idxs, n_threads: int = 0):
+    def get_batch(self, idxs, n_threads: int = 0, *, empty=np.empty):
         """Segments -> (seq [S, F, 6, h, w, C], flows [S, F, H, W, 2]),
-        F = group + seq_len - 1."""
+        F = group + seq_len - 1, each array from ``empty``."""
         return self.base.read_runs([self.segments[int(i)] for i in idxs],
-                                   self.group + self.seq_len - 1, n_threads)
+                                   self.group + self.seq_len - 1, n_threads, empty=empty)
 
 
 class PrefetchLoader:
@@ -170,6 +200,13 @@ class PrefetchLoader:
     keeps the error near 0.01 px and still halves the flows' bytes.  The
     codec runs on the worker thread, beside the device's work; it leaves
     the empty flows of ``require_motion=False`` as they are.
+
+    On a machine with a card (``torch.cuda.is_available()``) the worker
+    reads every batch into page-locked memory (:func:`pinned_empty`): the
+    batches are the same numpy arrays, views of pinned tensors, which
+    ``train/loop.py::batch_to_device`` copies without blocking.  Without a
+    card each batch is read into fresh numpy arrays.  A dataset's
+    ``get_batch(idxs, n_threads, empty=...)`` takes the allocator.
 
     ``drop_last`` drops a short last batch (``len`` counts whole batches
     only); without it the last batch holds the remaining windows.
@@ -215,7 +252,8 @@ class PrefetchLoader:
 
     def load_batch(self, idxs):
         """One batch as the worker ships it (after the codec)."""
-        seq, flows = self.ds.get_batch(idxs, n_threads=self.num_threads)
+        empty = pinned_empty if torch.cuda.is_available() else np.empty
+        seq, flows = self.ds.get_batch(idxs, n_threads=self.num_threads, empty=empty)
         if self.transfer_codec == "int8":
             from cp360_tpu_torch.ops.quantize import Quantized, quantize_cam_np
 

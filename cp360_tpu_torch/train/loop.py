@@ -43,6 +43,7 @@ import math
 import os
 import re
 import time
+from collections import deque
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -503,17 +504,86 @@ class GracefulShutdown:
 # ---- the epoch loop ------------------------------------------------------------
 
 
+RUN_AHEAD = 2  # uploads from page-locked memory that may run ahead of the caller's stream
+
+
+class PinnedUploads:
+    """One device's copies from page-locked host memory: a copy stream of
+    its own, an event on the caller's stream at each of the last
+    ``RUN_AHEAD`` calls, and each copy's host source until the copy has
+    run.  PyTorch's caching host allocator records a copy's event on its
+    block only when it finds the block by the copy's first byte: a view
+    that starts inside a block (a rank's rows,
+    ``parallel/mesh.py::shard_batch``) gets none, so without the held
+    source the block could go to the loader's next batch while the copy
+    still reads it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.marks: deque = deque()  # the caller's stream as each call found it
+        self.held: deque = deque()  # (the copy's event, its host source)
+
+    def upload(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (pinned) on the device, copied on the copy stream while
+        the caller's stream runs the work before it; the caller's stream
+        waits for the copy before anything it queues next.  The host first
+        waits for its stream as it stood ``RUN_AHEAD`` calls ago, so device
+        and pinned memory stay bounded however far ahead the loader runs."""
+        caller = torch.cuda.current_stream(self.device)
+        mark = torch.cuda.Event()
+        mark.record(caller)
+        self.marks.append(mark)
+        if len(self.marks) > RUN_AHEAD:
+            self.marks.popleft().synchronize()
+        while self.held and self.held[0][0].query():
+            self.held.popleft()
+        with torch.cuda.stream(self.stream):
+            y = x.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        caller.wait_event(done)
+        y.record_stream(caller)  # y's block is freed for reuse after the caller's work on it
+        self.held.append((done, x))
+        return y
+
+
+# one per device, as the copy stream is: batch_to_device is called with a
+# device alone, and the uploads of every caller share the bound
+_UPLOADS: Dict[torch.device, PinnedUploads] = {}
+
+
+def pinned_uploads(device: torch.device) -> PinnedUploads:
+    """The :class:`PinnedUploads` of a CUDA device."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _UPLOADS:
+        _UPLOADS[device] = PinnedUploads(device)
+    return _UPLOADS[device]
+
+
 def batch_to_device(batch, device: torch.device):
     """A numpy (or Quantized numpy) batch -> tensors on ``device``, in
     the span ``train.h2d``; the counter ``h2d.bytes`` adds the batch's
-    bytes."""
+    bytes and ``h2d.pinned_bytes`` those copied from page-locked memory.
+
+    A page-locked array bound for a CUDA device (``PrefetchLoader``'s
+    batches on a machine with a card) is copied without blocking, beside
+    the caller's earlier work (:class:`PinnedUploads`); the span then covers
+    the copy's launch and the host's bounded wait.  Any other batch is
+    copied from pageable memory in the caller's stream, which waits for
+    the step before it."""
+    device = torch.device(device)
     with annotate("train.h2d"):
         if isinstance(batch, Quantized):
             count("h2d.bytes", sum(a.nbytes for a in batch))
+            count("h2d.pinned_bytes", 0)
             return batch.to(device)
         x = torch.as_tensor(batch)
+        pinned = device.type == "cuda" and x.is_pinned()
         count("h2d.bytes", x.nbytes)
-        return x.to(device)
+        count("h2d.pinned_bytes", x.nbytes if pinned else 0)
+        return pinned_uploads(device).upload(x) if pinned else x.to(device)
 
 
 def _read_best(ckdir: str, log_fn):

@@ -167,6 +167,81 @@ def test_dataset_batches_equal_jax(tmp_path, monkeypatch, dtype, kind):
         _bits_equal(a, b)
 
 
+class DirtyEmpty:
+    """An allocator like the caching host allocator's reuse: each array
+    comes back full of 0xff bytes (NaN in a float), as a block another
+    batch wrote would, so a byte the read leaves unwritten shows.  It keeps
+    what it gave, to tell which arrays a batch holds came from it."""
+
+    def __init__(self):
+        self.given = []
+
+    def __call__(self, shape, dtype):
+        a = np.empty(shape, dtype)
+        a.view(np.uint8).fill(0xFF)
+        self.given.append(a)
+        return a
+
+    def gave(self, arr) -> bool:
+        return any(np.shares_memory(arr, a) for a in self.given)
+
+
+@pytest.mark.parametrize("kind", ["windows", "segments"])
+@pytest.mark.parametrize("dtype", [np.float16, np.float32])
+def test_dataset_batches_into_given_memory_equal_jax(tmp_path, dtype, kind):
+    """get_batch with an allocator (``empty=``, as the loader passes
+    pinned memory on a card) fills arrays from it that are bit for bit the
+    JAX package's batch: same dtypes, shapes, C order and windows."""
+    root, vids = _artifacts(tmp_path / "arts", dtype)
+    mine = dataset.WindowDataset(root, None, vids, seq_len=5)
+    theirs = jax_dataset.WindowDataset(root, None, vids, seq_len=5)
+    if kind == "segments":
+        mine = dataset.SegmentWindowDataset(mine, 2)
+        theirs = jax_dataset.SegmentWindowDataset(theirs, 2)
+    idxs = [len(mine) - 1, 0, 2]
+    for n_threads in (1, 4):
+        empty = DirtyEmpty()
+        got = mine.get_batch(idxs, n_threads, empty=empty)
+        for a, b in zip(got, theirs.get_batch(idxs, n_threads)):
+            _bits_equal(a, b)
+            assert a.flags.c_contiguous and empty.gave(a)
+
+
+@pytest.mark.parametrize("rows", [None, slice(1, 3)], ids=["whole", "rows"])
+def test_loader_on_a_card_reads_into_pinned_memory(tmp_path, monkeypatch, rows):
+    """Where torch sees a card, the loader's worker takes every array from
+    ``pinned_empty`` (a stand-in here) and yields batches bit for bit equal
+    to the fresh arrays it reads without one, a rank's rows included."""
+    root, vids = _artifacts(tmp_path / "arts", np.float16)
+    ds = dataset.WindowDataset(root, None, vids, seq_len=5)
+    kw = dict(batch_size=4, seed=5, num_threads=2, rows=rows)
+    without = [tuple(b) for b in dataset.PrefetchLoader(ds, **kw).iter_epoch(1)]
+    empty = DirtyEmpty()
+    monkeypatch.setattr(dataset.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(dataset, "pinned_empty", empty)
+    got = [tuple(b) for b in dataset.PrefetchLoader(ds, **kw).iter_epoch(1)]
+    assert len(got) == len(without) == 3
+    for batch, want in zip(got, without):
+        for a, b in zip(batch, want):
+            _bits_equal(a, b)
+            assert empty.gave(a) and not empty.gave(b)
+
+
+def test_loader_without_a_card_reads_into_fresh_arrays(tmp_path, monkeypatch):
+    """No card: the loader never asks for pinned memory, and yields the JAX
+    package's batches."""
+    root, vids = _artifacts(tmp_path / "arts", np.float32)
+    kw = dict(batch_size=3, seed=1)
+    monkeypatch.setattr(dataset.torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dataset, "pinned_empty", None)  # any call would fail
+    got = list(dataset.PrefetchLoader(dataset.WindowDataset(root, None, vids, 5), **kw))
+    want = list(jax_dataset.PrefetchLoader(jax_dataset.WindowDataset(root, None, vids, 5), **kw))
+    assert len(got) == len(want) > 2
+    for batch, jbatch in zip(got, want):
+        for a, b in zip(batch, jbatch):
+            _bits_equal(a, b)
+
+
 def test_missing_frame_raises_before_any_read(tmp_path, monkeypatch):
     root, vids = _artifacts(tmp_path / "arts", np.float32, vids=("v1",))
     os.remove(os.path.join(root, "v1", "motion", "000004.npy"))

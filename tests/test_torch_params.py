@@ -111,6 +111,29 @@ def test_require_motion_false_batches_equal_jax(cams_only, group):
     assert got[1].shape == (len(ds), T + max(group, 1) - 1, 0, 0, 2)
 
 
+@pytest.mark.parametrize("group", [0, 2])
+def test_require_motion_false_batches_into_given_memory_equal_jax(cams_only, group):
+    """get_batch with an allocator (``empty=``, the loader's pinned memory
+    on a card): the CAMs bit for bit in its arrays, the flows still empty
+    [B, F, 0, 0, 2] f32 planes of their own."""
+    ds = WindowDataset(cams_only, None, VIDS, T, require_motion=False)
+    jds = jax_dataset.WindowDataset(cams_only, None, VIDS, T, require_motion=False)
+    if group:
+        ds, jds = SegmentWindowDataset(ds, group), jax_dataset.SegmentWindowDataset(jds, group)
+    given = []
+
+    def empty(shape, dtype):
+        given.append(np.full(shape, np.nan, dtype))
+        return given[-1]
+
+    idxs = np.arange(len(ds))[::-1]
+    got, want = ds.get_batch(idxs, n_threads=2, empty=empty), jds.get_batch(idxs)
+    for a, b in zip(got, want):
+        _equal(a, b)
+    assert any(np.shares_memory(got[0], a) for a in given)
+    assert got[1].shape == (len(ds), T + max(group, 1) - 1, 0, 0, 2)
+
+
 def test_require_motion_false_int8_codec_leaves_the_flows_alone(cams_only):
     ds = WindowDataset(cams_only, None, VIDS, T, require_motion=False)
     jds = jax_dataset.WindowDataset(cams_only, None, VIDS, T, require_motion=False)
