@@ -79,6 +79,14 @@ Phases, in order; any failure exits non-zero before the result lines:
      bias once), the plain version and the library form, never called by
      the port: the cube pad's copy and cuDNN's grouped conv in the
      working dtype.
+   - ``cube_window_attn`` (Swin's window attention on cube faces, bf16)
+     at Swin-B's shapes of a batch of 8 (48 faces of 56/128, 28/256,
+     14/512 in regular and cube-padded shifted windows, 7/1024 in one
+     window) against its plain form within one bf16 ulp plus 1e-2 of the
+     largest output; timed against its bytes bound (q and the output once,
+     k and v as the windows gather them), the plain form and the library
+     form, never called by the port: the gather and SDPA with the
+     relative-position bias as its mask.
 3. slice: ``SaliencyModel(device="cuda")`` at full width (ResNet-50,
    224 faces of 960x1920 frames, 1000-class CAM, ConvLSTM 1000/1000,
    seq_len 5, bf16, all-device stage 1, seeded random weights) serves
@@ -188,14 +196,19 @@ Phases, in order; any failure exits non-zero before the result lines:
    (seeded weights, 1000 classes, 8 seeded natural-texture 960x1920
    frames, 224 faces, ``host_cube_remap: false``).
    - resnet18, resnet34, resnet101, resnet152, vgg16, mobilenet_v2 and
-     the port's own convnext_base (ConvNeXt-B)
-     through ``stage1_batch`` on the 8 frames in bf16 and f32: one K2
+     the port's own convnext_base (ConvNeXt-B) and swin_base (Swin-B)
+     through ``stage1_batch`` on the 8 frames in bf16 and f32 (swin_base in
+     bf16 only: its window-attention kernel takes bf16): one K2
      launch a batch, one K3 for the ResNets and none for the others (no
-     stem pool), 36 ``cube_dwconv`` launches for convnext_base and none
-     for the others, one conv epilogue a conv, CAMs [8,6,7,7,1000]; card f32 against
-     the port's f32 on the CPU on the first frame within 2e-4 of max|CAM|
-     (TF32 off), card bf16 against card f32 within 0.02 of max|CAM| (the
-     video phase's limit); stage-1 ms at 8 frames in bf16 (CUDA events,
+     stem pool), 36 ``cube_dwconv`` launches for convnext_base and 24
+     ``cube_window_attn`` for swin_base and none for the others, one conv
+     epilogue a conv (swin_base: the stem's and three a block, 73), CAMs
+     [8,6,7,7,1000]; card f32 against the port's f32 on the CPU on the first
+     frame within 2e-4 of max|CAM| (TF32 off), card bf16 against card f32
+     within 0.02 of max|CAM| (the video phase's limit); swin_base's card
+     bf16 against the CPU's f32 on the first frame within 0.05 of max|CAM|
+     (``tests/test_torch_swin.py``'s bound of bf16 against the f32
+     reference); stage-1 ms at 8 frames in bf16 (CUDA events,
      median of 5 after 2 warm-ups, frames already on the card) and its
      profile (the device's busy time and idle share, the top kernels).
    - resnet50: the bf16 default cube-conv form (``halo``), ``halo`` against
@@ -383,15 +396,18 @@ def counted_run(totals: dict, fn):
     """Run ``fn`` with every kernel's count set to 0 just before it and read
     just after (the one way the phases count a path); adds the counts to
     ``totals`` and returns (result, counts)."""
-    from cp360_tpu_torch.ops import conv_epilogue, cube_conv, cube_dwconv, cube_pool, equi_gather
+    from cp360_tpu_torch.ops import (conv_epilogue, cube_conv, cube_dwconv, cube_pool,
+                                     cube_window_attn, equi_gather)
 
     cube_conv.launches = cube_conv.dx_launches = equi_gather.launches = 0
     cube_pool.launches = conv_epilogue.launches = cube_dwconv.launches = 0
+    cube_window_attn.launches = 0
     out = fn()
     torch.cuda.synchronize()
     got = {"cube_conv3x3": cube_conv.launches, "cube_conv3x3_dx": cube_conv.dx_launches,
            "equi_to_cube": equi_gather.launches, "cube_pool3x3s2": cube_pool.launches,
-           "conv_epilogue": conv_epilogue.launches, "cube_dwconv": cube_dwconv.launches}
+           "conv_epilogue": conv_epilogue.launches, "cube_dwconv": cube_dwconv.launches,
+           "cube_window_attn": cube_window_attn.launches}
     for k, v in got.items():
         totals[k] = totals.get(k, 0) + v
     return out, got
@@ -852,6 +868,68 @@ def check_cube_dwconv(s: int, c: int, dtype: torch.dtype, gen, faces: int = 48,
     return res
 
 
+def check_cube_window_attn(s: int, c: int, heads: int, shift: bool, gen,
+                           faces: int = 48) -> dict:
+    """Swin's window attention (``ops/cube_window_attn.py``), bf16, on
+    ``faces`` faces of s x s tokens, regular or shifted (cube-padded),
+    against its plain form (within one bf16 ulp plus 1e-2 of the largest
+    output: both round at the same points and differ in the order of the
+    f32 sums and exp2f against exp), timed against its bound (bytes: q and
+    the output once, k and v as the windows gather them, the qkv bias and
+    the table once), the plain form and the library form, never called by
+    the port: the bias add, the gather of the windows, SDPA with the
+    relative-position bias as its float mask, and the scatter of the
+    own-face slots."""
+    import torch.nn.functional as F
+
+    from cp360_tpu_torch.bench.common import H100_BF16_FLOPS, bound_ms
+    from cp360_tpu_torch.ops import cube_window_attn as wa
+
+    qkv = torch.randn((faces, s, s, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+    bias = 0.5 * torch.randn(3 * c, generator=gen, device="cuda")
+    table = torch.randn((169, heads), generator=gen, device="cuda")
+    src, meta = wa.window_maps(s, 7, shift)
+    idx = torch.from_numpy(src.reshape(-1).astype(np.int64)).cuda()
+    own = torch.from_numpy(meta.reshape(-1) & 1).cuda().bool()
+    rel = table[torch.from_numpy(wa.rel_index(7)).cuda()].permute(2, 0, 1)
+    rel = rel.to(torch.bfloat16)[None, None]  # [1, 1, heads, 49, 49]
+    n, d = faces // 6, c // heads
+
+    def library():
+        t = (qkv + bias.to(torch.bfloat16)).reshape(n, 6 * s * s, 3 * c)[:, idx]
+        t = t.reshape(n, -1, 49, 3, heads, d).permute(3, 0, 1, 4, 2, 5)
+        o = F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=rel)
+        out = torch.empty((n, 6 * s * s, c), dtype=torch.bfloat16, device="cuda")
+        out[:, idx[own]] = o.permute(0, 1, 3, 2, 4).reshape(n, -1, c)[:, own]
+        return out
+
+    with torch.no_grad():
+        got = wa.cube_window_attn(qkv, bias, table, heads, 7, shift)
+        want = wa.plain_window_attn(qkv, bias, table, heads, 7, shift)
+        lib = library().reshape(got.shape)
+        torch.cuda.synchronize()
+        atol = 1e-2 * float(want.float().abs().max())
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), rtol=2.0 ** -7, atol=atol)
+        lib_err = (lib.float() - want.float()).abs().max().item()
+        ms = cuda_ms(lambda: wa.cube_window_attn(qkv, bias, table, heads, 7, shift), iters=50)
+        plain_ms = cuda_ms(lambda: wa.plain_window_attn(qkv, bias, table, heads, 7, shift),
+                           iters=5)
+        library_ms = cuda_ms(library, iters=20)
+    nw = wa.windows_per_face(s, 7, shift)
+    n_bytes = 2 * (2 * faces * s * s * c + 2 * faces * nw * 49 * c) + 4 * (3 * c + 169 * heads)
+    n_ops = 4.0 * 49 * 49 * c * nw * faces
+    bms, by = bound_ms(n_bytes, n_ops, H100_BF16_FLOPS)
+    res = {"shape": f"bf16 [{faces},{s},{s},{3 * c}] {heads} heads "
+                    f"{'shifted' if shift else 'regular'} ({nw} windows a face)",
+           "max_abs_err": err, "atol": atol, "library_max_abs_err": lib_err,
+           "passed": bool(ok), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bms, "bound_by": by, "gbytes_per_s": n_bytes / (ms * 1e-3) / 1e9,
+           "tflops": n_ops / (ms * 1e-3) / 1e12, "share_of_bound": bms / ms}
+    print(f"cube_window_attn {json.dumps(res)}", flush=True)
+    return res
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -902,14 +980,21 @@ def phase_kernels() -> dict:
            check_cube_dwconv(7, 1024, f32, gen, out_dtype=torch.bfloat16),
            check_cube_dwconv(14, 512, torch.bfloat16, gen),
            check_cube_dwconv(14, 512, f32, gen)]
-    bad = [r["shape"] for r in k1 + k1dx + padded + k2 + k3 + epi + dwc if not r["passed"]]
+    # Swin-B's window attention at the stream's batch of 8 (48 faces): each
+    # stage's regular and shifted (cube-padded) layers; stage 4 is one window
+    wat = [check_cube_window_attn(s, c, c // 32, shift, gen)
+           for s, c in ((56, 128), (28, 256), (14, 512), (7, 1024))
+           for shift in ((False, True) if s > 7 else (False,))]
+    bad = [r["shape"] for r in k1 + k1dx + padded + k2 + k3 + epi + dwc + wat
+           if not r["passed"]]
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     # the JSON line reports the dominant main-path conv (2 of the 3 per
     # step), equi->cube at a serving bucket of 8 and the stem pool at an
     # extraction batch of 16
     return {"cube_conv3x3": k1[1], "cube_conv3x3_dx": k1dx[0], "equi_to_cube": k2[0],
-            "cube_pool3x3s2": k3[1], "conv_epilogue": epi[0], "cube_dwconv": dwc[2]}
+            "cube_pool3x3s2": k3[1], "conv_epilogue": epi[0], "cube_dwconv": dwc[2],
+            "cube_window_attn": wat[1]}
 
 
 # ---- phase 3: the serving slice ----------------------------------------------
@@ -2504,9 +2589,10 @@ def phase_stream() -> dict:
 
 
 BACKBONE_ARCHS = ("resnet18", "resnet34", "resnet101", "resnet152", "vgg16", "mobilenet_v2",
-                  "convnext_base")
+                  "convnext_base", "swin_base")
 BACKBONE_CPU_TOL = 2e-4  # card f32 vs the CPU's f32 CAMs, of max|ref|
 BACKBONE_BF16_TOL = 0.02  # card bf16 vs card f32 CAMs, of max (the video phase's limit)
+SWIN_BF16_TOL = 0.05  # card bf16 vs the CPU's f32 CAMs (tests/test_torch_swin.py's BF16_BOUND)
 HALO_F32_TOL = 1e-3  # halo vs pad features, f32, atol and rtol (tests/test_cube_pad.py:204-221)
 
 
@@ -2573,14 +2659,16 @@ def phase_backbones() -> dict:
             tree = jax_params.init_backbone_params(SEED, arch)
             want_k3 = 1 if arch.startswith("resnet") else 0
             want_dw = 36 if arch == "convnext_base" else 0
+            swin = arch == "swin_base"
             out = {}
-            for dtype in (bf16, f32):
+            for dtype in (bf16,) if swin else (bf16, f32):
                 model = jax_params.backbone_from_params(tree, arch, True, dtype, "cuda")
                 (scores, sal), got = counted_run(counted, lambda: run_stage1(model, x8))
-                convs = sum(isinstance(m, layers.Conv) for m in model.modules())
+                convs = (1 + 3 * sum(model.depths) if swin else
+                         sum(isinstance(m, layers.Conv) for m in model.modules()))
                 if got != {"cube_conv3x3": 0, "cube_conv3x3_dx": 0, "equi_to_cube": 1,
                            "cube_pool3x3s2": want_k3, "conv_epilogue": convs,
-                           "cube_dwconv": want_dw}:
+                           "cube_dwconv": want_dw, "cube_window_attn": 24 if swin else 0}:
                     fail(f"{arch} {dtype}: launches {got} for one stage-1 batch")
                 if tuple(scores.shape) != (8, 6, 7, 7, 1000) or tuple(sal.shape) != (8, 14, 28) \
                         or not bool(torch.isfinite(scores).all()):
@@ -2599,15 +2687,18 @@ def phase_backbones() -> dict:
             cpu_model = jax_params.backbone_from_params(tree, arch, True, f32, "cpu")
             cpu_scores = run_stage1(cpu_model, x1_cpu)[0]
             del cpu_model, tree
-            cpu_err = rel_err(out[f32][:1], cpu_scores)
-            bf16_err = rel_err(out[bf16], out[f32])
-            stats.update({f"{arch}_card_vs_cpu_f32": cpu_err, f"{arch}_bf16_vs_f32": bf16_err})
+            # swin_base: card bf16 against the CPU's f32, the card having no f32
+            cpu_err = 0.0 if swin else rel_err(out[f32][:1], cpu_scores)
+            bf16_err = rel_err(out[bf16][:1], cpu_scores) if swin else rel_err(out[bf16], out[f32])
+            bf16_tol = SWIN_BF16_TOL if swin else BACKBONE_BF16_TOL
+            stats.update({f"{arch}_card_vs_cpu_f32": None if swin else cpu_err,
+                          f"{arch}_bf16_vs_f32": bf16_err})
             print(f"backbones: {arch}: CAM [8,6,7,7,1000]; K2 1, K3 {want_k3} launches a "
-                  f"batch; card f32 vs CPU f32 {cpu_err} (limit {BACKBONE_CPU_TOL}), bf16 vs "
-                  f"f32 {bf16_err} (limit {BACKBONE_BF16_TOL}) of max|CAM|; stage 1 at 8 frames "
-                  f"bf16 {stats[f'{arch}_stage1_ms']:.3f} ms; {time.monotonic() - t0:.1f} s",
-                  flush=True)
-            if not (cpu_err <= BACKBONE_CPU_TOL and bf16_err <= BACKBONE_BF16_TOL):
+                  f"batch; card f32 vs CPU f32 {None if swin else cpu_err} (limit "
+                  f"{BACKBONE_CPU_TOL}), bf16 vs f32 {bf16_err} (limit {bf16_tol}) of "
+                  f"max|CAM|; stage 1 at 8 frames bf16 {stats[f'{arch}_stage1_ms']:.3f} ms; "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            if not (cpu_err <= BACKBONE_CPU_TOL and bf16_err <= bf16_tol):
                 fail(f"{arch}: card f32 vs CPU {cpu_err}, bf16 vs f32 {bf16_err}")
 
         # -- resnet50: halo vs pad
@@ -3874,6 +3965,7 @@ def main(argv=None) -> None:
                            "tools/bench_pool_pallas.py:39"),
         "conv_epilogue": ("cp360_tpu_torch/csrc/conv_epilogue.cu", None),
         "cube_dwconv": ("cp360_tpu_torch/csrc/cube_dwconv.cu", None),
+        "cube_window_attn": ("cp360_tpu_torch/csrc/cube_window_attn.cu", None),
     }
     line = []
     for name, (source, replaces) in meta.items():

@@ -70,8 +70,8 @@ def main(argv=None):
     cfg = config_from_args(args)
     if args.data_parallel:
         cfg = cfg.replace(mesh_data=args.data_parallel)
-    if args.mode not in jax_params.BACKBONES:
-        raise ValueError(f"unknown --mode {args.mode!r} (one of {jax_params.BACKBONES})")
+    if not jax_params.is_backbone(args.mode):
+        raise ValueError(f"unknown --mode {args.mode!r} (one of {jax_params.PORT_BACKBONES})")
     check_extract_config(cfg, args.output_motion)
     if args.supervise is not None:
         from cp360_tpu_torch.utils.supervise import run_supervised

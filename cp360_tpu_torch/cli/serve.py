@@ -47,8 +47,8 @@ def main(argv=None):
     cfg = config_from_args(args)
     if args.data_parallel:
         cfg = cfg.replace(mesh_data=args.data_parallel)
-    if args.mode not in jax_params.BACKBONES:
-        raise ValueError(f"unknown --mode {args.mode!r} (one of {jax_params.BACKBONES})")
+    if not jax_params.is_backbone(args.mode):
+        raise ValueError(f"unknown --mode {args.mode!r} (one of {jax_params.PORT_BACKBONES})")
     device = resolve_device(entry_device(args.device, cfg))  # before loading weights: fail fast
 
     params = load_params(args.weights, args.mode)

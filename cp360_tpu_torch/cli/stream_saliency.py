@@ -68,8 +68,8 @@ def main(argv=None):
     args, unknown = parser.parse_known_args(argv)
     warn_ignored_args(unknown)
     cfg = config_from_args(args)
-    if args.arch not in jax_params.BACKBONES:
-        raise ValueError(f"unknown --arch {args.arch!r} (one of {jax_params.BACKBONES})")
+    if not jax_params.is_backbone(args.arch):
+        raise ValueError(f"unknown --arch {args.arch!r} (one of {jax_params.PORT_BACKBONES})")
     if args.supervise is not None:
         from cp360_tpu_torch.utils.supervise import run_supervised
 

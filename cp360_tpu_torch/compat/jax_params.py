@@ -43,13 +43,22 @@ import numpy as np
 import torch
 
 from cp360_tpu_torch.compat.convnext_params import convnext_from_params, init_convnext_params
-from cp360_tpu_torch.models import convnext
+from cp360_tpu_torch.compat.swin_params import init_swin_params, swin_from_params
+from cp360_tpu_torch.models import convnext, swin
 from cp360_tpu_torch.models.clstm import ConvLSTM
 from cp360_tpu_torch.models.mobilenet import LAST, V2_CFG, MobileNetV2
 from cp360_tpu_torch.models.resnet import ARCHS, EXPANSION, ResNet
 from cp360_tpu_torch.models.vgg import VGG16, VGG16_CFG
 
 BACKBONES = tuple(ARCHS) + ("vgg16", "mobilenet_v2")
+# every family the port builds: the JAX package's, then its own ConvNeXt and Swin
+PORT_BACKBONES = BACKBONES + tuple(convnext.ARCHS) + tuple(swin.ARCHS)
+
+
+def is_backbone(arch: str) -> bool:
+    """Whether the port builds a backbone named ``arch`` (the entry points'
+    check of ``--arch`` / ``--mode``)."""
+    return arch in PORT_BACKBONES
 
 # ---------------------------------------------------------------------------
 # Flat .npz checkpoints (the JAX package's portable format).
@@ -320,9 +329,12 @@ def init_mobilenet_v2_params(seed: int, num_classes: int = 1000) -> dict:
 
 def init_backbone_params(seed: int, arch: str, num_classes: int = 1000) -> dict:
     """The seeded param tree of any backbone family in :data:`BACKBONES`,
-    or of the port's own ConvNeXt (``compat/convnext_params.py``)."""
+    or of the port's own ConvNeXt and Swin (``compat/convnext_params.py``,
+    ``compat/swin_params.py``)."""
     if arch in convnext.ARCHS:
         return init_convnext_params(seed, arch, num_classes)
+    if arch in swin.ARCHS:
+        return init_swin_params(seed, arch, num_classes)
     if arch == "vgg16":
         return init_vgg16_params(seed, num_classes)
     if arch == "mobilenet_v2":
@@ -420,11 +432,14 @@ def backbone_from_params(params: dict, arch: str = "resnet50", use_cube_pad: boo
                          compute_dtype: torch.dtype = torch.bfloat16, device="cpu",
                          cube_conv_form=None):
     """A param tree -> the stage-1 backbone of family ``arch`` (one of
-    :data:`BACKBONES`, or a ConvNeXt of ``models.convnext.ARCHS``, the
-    port's own family) on ``device``: the one constructor every entry point
-    uses.  ``cube_conv_form`` is the ResNets' option."""
+    :data:`BACKBONES`, or a ConvNeXt of ``models.convnext.ARCHS`` or a Swin
+    of ``models.swin.ARCHS``, the port's own families) on ``device``: the
+    one constructor every entry point uses.  ``cube_conv_form`` is the
+    ResNets' option."""
     if arch in convnext.ARCHS:
         return convnext_from_params(params, use_cube_pad, compute_dtype, device)
+    if arch in swin.ARCHS:
+        return swin_from_params(params, use_cube_pad, compute_dtype, device)
     if arch == "vgg16":
         return vgg16_from_params(params, use_cube_pad, compute_dtype, device)
     if arch == "mobilenet_v2":

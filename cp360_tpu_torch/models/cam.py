@@ -8,9 +8,10 @@ its feature map and the score cube is one f32 matmul on the device.
 Every backbone family takes this one path, as the JAX package's
 ``_backbone_cam`` dispatch does (``cp360_tpu/pipelines/extract.py:84-101``):
 a ``Backbone`` is any of ``models.resnet.ResNet``, ``models.vgg.VGG16``,
-``models.mobilenet.MobileNetV2`` and ``models.convnext.ConvNeXt`` (a family
-the JAX package does not have), whose ``forward(x, with_logits=False)``
-returns the CAM feature map and whose ``cam_w`` is its classifier weight.
+``models.mobilenet.MobileNetV2``, ``models.convnext.ConvNeXt`` and
+``models.swin.SwinTransformer`` (families the JAX package does not have),
+whose ``forward(x, with_logits=False)`` returns the CAM feature map and
+whose ``cam_w`` is its classifier weight.
 
 On a CUDA input with autograd off, :func:`cam_forward` replays a CUDA graph
 of the whole forward, captured once per input shape (:class:`CamGraphs`):
@@ -30,16 +31,18 @@ import torch
 from cp360_tpu_torch.models.convnext import ConvNeXt
 from cp360_tpu_torch.models.mobilenet import MobileNetV2
 from cp360_tpu_torch.models.resnet import ResNet
+from cp360_tpu_torch.models.swin import SwinTransformer
 from cp360_tpu_torch.models.vgg import VGG16
-from cp360_tpu_torch.ops import conv_epilogue, cube_dwconv, cube_pool
+from cp360_tpu_torch.ops import conv_epilogue, cube_dwconv, cube_pool, cube_window_attn
 from cp360_tpu_torch.utils.profiling import count
 
-Backbone = Union[ResNet, VGG16, MobileNetV2, ConvNeXt]
+Backbone = Union[ResNet, VGG16, MobileNetV2, ConvNeXt, SwinTransformer]
 
 MAX_GRAPHS = 8  # captured input shapes a model keeps; the least recently used goes first
-# the kernels in a forward whose module-level ``launches`` a capture records
-# and each replay adds (the capture itself launches nothing)
-COUNTED = (cube_pool, conv_epilogue, cube_dwconv)
+# (module, counter) of the kernels in a forward whose module-level counts a
+# capture records and each replay adds (the capture itself launches nothing)
+COUNTED = ((cube_pool, "launches"), (conv_epilogue, "launches"), (cube_dwconv, "launches"),
+           (cube_window_attn, "launches"), (cube_window_attn, "windows"))
 
 
 def shift_weight_nonneg(fc_w: torch.Tensor) -> torch.Tensor:
@@ -190,12 +193,12 @@ class CamGraphs:
 class _Graph:
     """One captured forward: the graph, its static input and outputs, the
     event after the model's last replay on the device (shared by the
-    model's graphs there), and the launches of each of :data:`COUNTED`'s
-    kernels it holds."""
+    model's graphs there), and what it adds to each of :data:`COUNTED`'s
+    counters."""
 
-    def __init__(self, graph, static_in, outs, done, launches: tuple):
+    def __init__(self, graph, static_in, outs, done, counts: tuple):
         self.graph, self.static_in, self.outs = graph, static_in, outs
-        self.done, self.launches = done, launches
+        self.done, self.counts = done, counts
 
     def replay(self, x):
         """Copy ``x`` in, replay, and return clones of the outputs on the
@@ -207,9 +210,17 @@ class _Graph:
             self.graph.replay()
             outs = tuple(t.clone() for t in self.outs)
             self.done.record(stream)
-        for ops, n in zip(COUNTED, self.launches):
-            ops.launches += n
+        _add_counts(self.counts)
         return outs
+
+
+def _counts() -> tuple:
+    return tuple(getattr(ops, name) for ops, name in COUNTED)
+
+
+def _add_counts(delta: tuple) -> None:
+    for (ops, name), n in zip(COUNTED, delta):
+        setattr(ops, name, getattr(ops, name) + n)
 
 
 def _capture(model, x, shared: dict):
@@ -232,12 +243,11 @@ def _capture(model, x, shared: dict):
         for t in outs:
             t.record_stream(caller)
         static_in = torch.empty(x.shape, dtype=x.dtype, device=dev)
-        before = [ops.launches for ops in COUNTED]
+        before = _counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=shared["pool"], stream=side,
                               capture_error_mode="thread_local"):
             static_outs = cam_forward_eager(model, static_in)
-        launches = tuple(ops.launches - b for ops, b in zip(COUNTED, before))
-        for ops, n in zip(COUNTED, launches):
-            ops.launches -= n  # the capture launched nothing
-    return _Graph(graph, static_in, static_outs, shared["done"], launches), outs
+        counts = tuple(n - b for n, b in zip(_counts(), before))
+        _add_counts(tuple(-n for n in counts))  # the capture launched nothing
+    return _Graph(graph, static_in, static_outs, shared["done"], counts), outs

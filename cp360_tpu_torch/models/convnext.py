@@ -31,11 +31,12 @@ is held in f32, and everything the blocks compute from it in the compute
 dtype (bf16 on the main path).  The depthwise conv is
 ``ops/cube_dwconv.py`` (the hand-written kernel on the card), which reads
 the f32 stream and writes its sum and bias rounded once to the compute
-dtype; each LayerNorm is ``F.layer_norm`` over the channels, computed in
-f32 inside the op and rounded once to the compute dtype (the block's from
-the depthwise conv's output, the downsampling convs' and the head's from
-the f32 stream); W1, W2 and the patchify convs are convs through
-``models/layers.py::conv2d`` (cuDNN) whose bias, GELU, layer scale and
+dtype; each LayerNorm is ``models/layers.py::Norm`` (``F.layer_norm`` over
+the channels, computed in f32 inside the op and rounded once to the
+compute dtype; the block's from the depthwise conv's output, the
+downsampling convs' and the head's from the f32 stream; the stem is
+``layers.patch_embed``, which Swin shares); W1, W2 and the patchify convs
+are convs through ``models/layers.py::conv2d`` (cuDNN) whose bias, GELU, layer scale and
 residual run in one epilogue pass (``ops/conv_epilogue.py``: W1 takes b1
 and GELU, W2 ``(y + b2) * gamma + x`` with x and the result in f32).
 Why f32: rounded to bf16, the 36 sums of the stream carry an error that
@@ -74,11 +75,10 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cp360_tpu_torch.models import layers
-from cp360_tpu_torch.models.layers import Conv
+from cp360_tpu_torch.models.layers import Conv, Norm
 from cp360_tpu_torch.ops.conv_epilogue import conv_epilogue
 from cp360_tpu_torch.ops.cube_dwconv import cube_dwconv
 
@@ -102,29 +102,6 @@ def arch_name(depths: Sequence[int], dims: Sequence[int]) -> str:
     return "convnext"
 
 
-def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """LayerNorm over the last (channel) axis, eps 1e-6: computed in f32
-    inside ``F.layer_norm`` and rounded once to x's dtype."""
-    return F.layer_norm(x, (x.shape[-1],), w, b, LN_EPS)
-
-
-class _Norm(nn.Module):
-    """A LayerNorm whose scale and shift are held in ``dtype`` (their own by
-    default), the dtype of its input, and whose output is rounded to
-    ``out_dtype`` (the input's by default)."""
-
-    def __init__(self, w: torch.Tensor, b: torch.Tensor, dtype: Optional[torch.dtype] = None,
-                 out_dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.register_buffer("w", w if dtype is None else w.to(dtype))
-        self.register_buffer("b", b if dtype is None else b.to(dtype))
-        self.out_dtype = out_dtype
-
-    def forward(self, x):
-        y = layer_norm(x, self.w, self.b)
-        return y if self.out_dtype is None else y.to(self.out_dtype)
-
-
 class Block(nn.Module):
     """One ConvNeXt block on a face batch [N*6, S, S, C] of the f32
     residual stream."""
@@ -134,7 +111,7 @@ class Block(nn.Module):
         # [C, 7, 7] in f32, the stream's dtype, over [7, 7, C] storage (exact: a widening)
         self.register_buffer("dw_w", p["dw_w"].float())
         self.register_buffer("dw_b", p["dw_b"])
-        self.norm = _Norm(p["ln_w"], p["ln_b"])
+        self.norm = Norm(p["ln_w"], p["ln_b"], LN_EPS)
         self.pw1 = Conv(p["w1"], p["b1"])
         self.pw2 = Conv(p["w2"], p["b2"])
         self.register_buffer("gamma", p["gamma"])
@@ -157,15 +134,15 @@ class ConvNeXt(nn.Module):
         self.compute_dtype = compute_dtype
         stem = params["stem"]
         self.stem = Conv(stem["w"], stem["b"])
-        self.stem_norm = _Norm(stem["ln_w"], stem["ln_b"])
+        self.stem_norm = Norm(stem["ln_w"], stem["ln_b"], LN_EPS)
         self.downs = nn.ModuleList([Conv(d["w"], d["b"]) for d in params["downsample"]])
         # the norms that read the f32 stream: theirs in f32, their outputs in the compute dtype
-        self.down_norms = nn.ModuleList([_Norm(d["ln_w"], d["ln_b"], torch.float32,
-                                               compute_dtype) for d in params["downsample"]])
+        self.down_norms = nn.ModuleList([Norm(d["ln_w"], d["ln_b"], LN_EPS, torch.float32,
+                                              compute_dtype) for d in params["downsample"]])
         self.stages = nn.ModuleList([nn.ModuleList([Block(b) for b in stage])
                                      for stage in params["stages"]])
-        self.head_norm = _Norm(params["head"]["ln_w"], params["head"]["ln_b"], torch.float32,
-                               compute_dtype)
+        self.head_norm = Norm(params["head"]["ln_w"], params["head"]["ln_b"], LN_EPS,
+                              torch.float32, compute_dtype)
         self.register_buffer("cam_w", params["fc_w"])  # [C, K] f32
         self.register_buffer("cam_b", params["fc_b"])
         self.depths = tuple(len(s) for s in params["stages"])
@@ -177,8 +154,7 @@ class ConvNeXt(nn.Module):
         if x.ndim == 5:
             x = x.reshape(-1, *x.shape[2:])
         cd, cp = self.compute_dtype, self.use_cube_pad
-        out = layers.conv_bn(x.to(cd), self.stem, None, STEM, cd)
-        out = self.stem_norm(out).float()  # the residual stream: f32
+        out = layers.patch_embed(x, self.stem, self.stem_norm, STEM, cd)  # the f32 stream
         for si, stage in enumerate(self.stages):
             if si:
                 out = self.down_norms[si - 1](out)

@@ -8,6 +8,8 @@ and :class:`BatchNorm` hold one layer's weights for the backbones
 batch norm after it as :func:`conv_bn`: the batch norm folded into the
 conv's kernel and its epilogue (:func:`fold`), then one epilogue pass
 (``ops/conv_epilogue.py``) for the bias, the residual and the activation.
+:class:`Norm` (a LayerNorm over channels) and :func:`patch_embed` (the
+patchify stem onto the f32 residual stream) serve ConvNeXt and Swin.
 
 Layout: an NHWC activation permuted to NCHW is a channels_last tensor, the
 layout cuDNN convolves without a copy; the backbones keep their kernels as
@@ -192,6 +194,21 @@ def conv_bn(x: torch.Tensor, conv: "Conv", bn: Optional["BatchNorm"], stride=1,
     return conv_epilogue(out, shift, scale, conv_bias, residual, act)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over the last (channel) axis: computed in f32 inside
+    ``F.layer_norm`` and rounded once to x's dtype."""
+    return F.layer_norm(x, (x.shape[-1],), w, b, eps)
+
+
+def patch_embed(x: torch.Tensor, conv: "Conv", norm: "Norm", k: int,
+                compute_dtype: torch.dtype) -> torch.Tensor:
+    """The patchify stem of ConvNeXt and Swin: a kxk stride-k conv with its
+    bias in the compute dtype, then a LayerNorm rounded to it; returns the
+    f32 residual stream the blocks add onto."""
+    out = conv_bn(x.to(compute_dtype), conv, None, k, compute_dtype)
+    return norm(out).float()
+
+
 def pad_faces(x: torch.Tensor, p: int, use_cube_pad: bool = True) -> torch.Tensor:
     """Pad a face-flattened batch [N*6, H, W, C] (cube- or zero-pad)."""
     if p == 0:
@@ -229,3 +246,21 @@ class BatchNorm(nn.Module):
         super().__init__()
         for k in ("scale", "bias", "mean", "var"):
             self.register_buffer(k, p[k])
+
+
+class Norm(nn.Module):
+    """A LayerNorm over channels with epsilon ``eps`` whose scale and shift
+    are held in ``dtype`` (their own by default), the dtype of its input,
+    and whose output is rounded to ``out_dtype`` (the input's by
+    default)."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor, eps: float,
+                 dtype: Optional[torch.dtype] = None, out_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.register_buffer("w", w if dtype is None else w.to(dtype))
+        self.register_buffer("b", b if dtype is None else b.to(dtype))
+        self.eps, self.out_dtype = eps, out_dtype
+
+    def forward(self, x):
+        y = layer_norm(x, self.w, self.b, self.eps)
+        return y if self.out_dtype is None else y.to(self.out_dtype)
